@@ -2,28 +2,40 @@
 """GPU smoke test of the PyTorch/CUDA port: the quickest proof that the port
 builds its kernels and serves on a card.
 
-    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~1-2 minutes
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~2 minutes
 
 What it does, one JSON line per phase:
 
   env            card name and power limit (nvidia-smi), torch/CUDA versions
   build          compiles src/repro_torch/csrc/*.cu with nvcc, seconds taken
-  kernel_checks  each hand-written kernel against its plain PyTorch version
-                 on the card: the shape x dtype sweep of the CPU tests plus
-                 the shapes the paper models give it, and timings at the
-                 DLRM-RMC2 shapes (kernel, bound, plain version, library call)
-  parity         forward of every paper model's smoke config on the card
-                 (kernels) against the same weights and batch on the CPU
-                 (plain versions)
+  kernel_checks  each hand-written kernel (K1 embedding bag, K2 dot
+                 interaction, K3 CIN layer) against its plain PyTorch
+                 version on the card: the shape x dtype sweep of the CPU
+                 tests plus the shapes the models give it, and timings at
+                 the DLRM-RMC2 and xDeepFM shapes (kernel, bound, plain
+                 version, library call)
+  parity         forward of every recsys smoke config (paper models and
+                 zoo) on the card (kernels) against the same weights and
+                 batch on the CPU (plain versions), and the launches each
+                 forward must make
   serve          DLRM-RMC2 at its published size behind ServingRuntime and
                  OnlineController, fed a Poisson stream of production-sized
                  queries; launch counts are zeroed just before and read just
-                 after; one request's logits are held against the plain
-                 versions on the card
-  kernels        per kernel: launches on the serve path, max error, and at
-                 RMC2 batch 1024 its time on the card (CUDA-graph replay, no
-                 host time between launches), the host's time for one eager
-                 call, the bound, and the plain and library versions' times
+                 after, and must be exactly one K1 and one K2 per request;
+                 one request's logits are held against the plain versions
+  zoo            xDeepFM, AutoInt, MIND and BERT4Rec at their published
+                 sizes: forward at serve_p99 (batch 512), xDeepFM's
+                 bulk_forward, MIND's and BERT4Rec's score_candidates over
+                 10^6 candidates, each held against a plain-only run and
+                 timed; launch counts zeroed before and read after
+  serve_xdeepfm  xDeepFM at its published size behind ServingRuntime at a
+                 fixed batch size of 512 (no SLA target exists for it, so
+                 no controller); exactly one K1 and three K3 per request
+  kernels        per kernel: launches over the driven paths, max error, and
+                 at its main-path shape its time on the card (CUDA-graph
+                 replay, no host time between launches), the host's time for
+                 one eager call, the bound, and the plain and library
+                 versions' times
 
 then the card line and, last, {"ok": true, "device": {...}}.  Any failed
 phase raises: the script exits non-zero and prints no result.  It also
@@ -37,6 +49,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -49,7 +62,8 @@ from repro_torch.configs.paper_models import PAPER_MODELS, SLA_TARGETS  # noqa: 
 from repro_torch.core.query_gen import PRODUCTION, query_stream  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.layers.mlp import mlp  # noqa: E402
+from repro_torch.layers import interactions as ix  # noqa: E402
+from repro_torch.layers.mlp import linear, mlp  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
 from repro_torch.serve.runtime import (OnlineController, ServingRuntime,  # noqa: E402
@@ -60,9 +74,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}       # rtol = atol, as the CPU sweep
+CIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # K3: tests/test_kernels.py's 1e-4
 BUCKETS = (1, 4, 16, 64, 256, 1024)
 MAIN_BATCHES = (1, 64, 1024)
 SERVE_ARCH = "dlrm-rmc2"
+ZOO = ("xdeepfm", "autoint", "mind", "bert4rec")
+ZOO_BATCHES = (1, 64, 512)                               # 512: RECSYS_SHAPES serve_p99
+BULK_ROWS = 65_536              # cut from serve_bulk's 262,144 rows to fit the script's time
+KERNELS = ("embedding_bag", "dot_interaction", "cin_layer")
 
 
 def emit(obj: dict) -> None:
@@ -141,7 +160,7 @@ def tree_to(tree, device):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 # ---------------------------------------------------------------- kernel checks
@@ -191,6 +210,19 @@ def check_embedding_bag(rng, gen, dev, tables32: torch.Tensor) -> tuple[list, fl
             checks.append({"model": name, "shape": [batch, f, h, tables.shape[2]],
                            "max_abs_err": err, "tol": tol})
     del tables64
+    # the zoo's table shapes: xDeepFM's D = 10 (a 40-byte row, the scalar
+    # path) and AutoInt's D = 16 (64 bytes, the vector path)
+    for name in ("xdeepfm", "autoint"):
+        cfg = configs.get(name).config
+        tables = torch.randn((cfg.n_tables, cfg.vocab, cfg.embed_dim), generator=gen, device=dev)
+        for batch in ZOO_BATCHES:
+            idx = zipf_ids(rng, (batch, cfg.n_tables, cfg.hotness), cfg.vocab, dev)
+            got = ops.embedding_bag(tables, idx, check_indices=True)
+            err = compare(f"embedding_bag {name} B={batch}", got,
+                          ref.embedding_bag_stacked(tables, idx), tol, tol)
+            checks.append({"model": name, "shape": [batch, cfg.n_tables, cfg.hotness,
+                                                    cfg.embed_dim],
+                           "max_abs_err": err, "tol": tol})
     return checks, main_err
 
 
@@ -218,13 +250,14 @@ def check_dot_interaction(gen, dev) -> tuple[list, float]:
     return checks, main_err
 
 
-def time_embedding_bag(rng, dev, tables: torch.Tensor, batch: int, ids: str) -> dict:
-    """Times at the DLRM-RMC2 shape.  ``ids`` is 'zipf' (the serving data's
+def time_embedding_bag(rng, dev, tables: torch.Tensor, batch: int, ids: str,
+                       h: int = PAPER_MODELS[SERVE_ARCH].hotness) -> dict:
+    """Times at one model's shape (DLRM-RMC2's unless the tables and the
+    hotness ``h`` say otherwise).  ``ids`` is 'zipf' (the serving data's
     skew: hot rows repeat and sit in L2) or 'uniform' (every lookup a
     different row, the gather at its coldest).  Eight index sets rotate so
     consecutive launches do not repeat a request."""
     f, v, d = tables.shape
-    h = PAPER_MODELS[SERVE_ARCH].hotness
     if ids == "zipf":
         sets = [zipf_ids(rng, (batch, f, h), v, dev) for _ in range(8)]
     else:
@@ -283,7 +316,110 @@ def time_dot_interaction(gen, dev, batch: int) -> dict:
     }
 
 
+def cin_inputs(gen, dev, b: int, f: int, h: int, hn: int, d: int,
+               dtype=torch.float32) -> tuple:
+    """x0, xk at the embeddings' scale and w at init_cin's, on the card."""
+    x0 = (torch.randn((b, f, d), generator=gen, device=dev) / d ** 0.5).to(dtype)
+    xk = (torch.randn((b, h, d), generator=gen, device=dev) / d ** 0.5).to(dtype)
+    w = (torch.randn((h * f, hn), generator=gen, device=dev) / (h * f) ** 0.5).to(dtype)
+    return x0, xk, w
+
+
+def xdeepfm_cin_shapes() -> list[tuple[int, int, int]]:
+    """(F, H, Hn) of each of xDeepFM's CIN layers (the last two coincide)."""
+    cfg = configs.get("xdeepfm").config
+    shapes, h = [], cfg.n_tables
+    for hn in cfg.cin_layers:
+        shapes.append((cfg.n_tables, h, hn))
+        h = hn
+    return sorted(set(shapes))
+
+
+def check_cin_layer(gen, dev) -> tuple[list, float]:
+    """K3 against ref.cin_layer: float32 within 1e-4 and bfloat16 within
+    2e-2 (rtol = atol); at xDeepFM's full K = H·F = 7800, also against the
+    float64 value within the rigorous bound of a float32 recursive sum with
+    one rounded product per term, gamma_{K+1} · Σ|xk·x0·w|,
+    gamma_n = n·u / (1 - n·u), u = 2^-24."""
+    checks, main_err = [], 0.0
+    d_xdfm = configs.get("xdeepfm").config.embed_dim
+    sweep = [((b, f, h, hn, d), False) for b, f, h, hn, d in
+             [(8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130)]]
+    sweep += [((b, f, h, hn, d_xdfm), True) for b in ZOO_BATCHES
+              for f, h, hn in xdeepfm_cin_shapes()]
+    for (b, f, h, hn, d), main in sweep:
+        for dtype in (torch.float32, torch.bfloat16):
+            x0, xk, w = cin_inputs(gen, dev, b, f, h, hn, d, dtype)
+            tol = CIN_TOL[dtype]
+            got = ops.cin_layer(x0, xk, w)
+            err = compare(f"cin_layer {b, f, h, hn, d} {dtype}", got, ref.cin_layer(x0, xk, w),
+                          tol, tol)
+            row = {"shape": [b, f, h, hn, d], "dtype": str(dtype), "max_abs_err": err,
+                   "tol": tol}
+            if main and dtype == torch.float32:
+                main_err = max(main_err, err)
+                if h * f == max(hh * ff for ff, hh, _ in xdeepfm_cin_shapes()):
+                    k = h * f
+                    u = 2.0 ** -24
+                    gamma = (k + 1) * u / (1 - (k + 1) * u)
+                    exact = ref.cin_layer(x0.double(), xk.double(), w.double())
+                    mag = ref.cin_layer(x0.double().abs(), xk.double().abs(), w.double().abs())
+                    dev64 = (got.double() - exact).abs()
+                    if not bool((dev64 <= gamma * mag).all()):
+                        fail(f"cin_layer {b, f, h, hn, d}: float32 result outside "
+                             f"gamma_{k + 1}·Σ|terms| of the float64 value")
+                    row.update({"against_float64_max_abs_err": float(dev64.max()),
+                                "float64_bound": f"gamma_{k + 1}*sum|xk*x0*w|",
+                                "largest_share_of_bound": float((dev64 / (gamma * mag)).max())})
+                    del exact, mag, dev64
+            checks.append(row)
+    return checks, main_err
+
+
+def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
+    """K3 at one layer's shape.  Four input sets rotate; w is one matrix
+    (a model has one per layer), read again by every block from L2."""
+    sets = [cin_inputs(gen, dev, b, f, h, hn, d) for _ in range(4)]
+    w = sets[0][2]
+    k = h * f
+    flops = 2 * b * d * k * hn + b * d * k          # the FMAs, plus forming each product once
+    bytes_moved = (b * f * d + b * h * d + k * hn + b * hn * d) * 4
+
+    def kernel(i):
+        return ops.cin_layer(sets[i % 4][0], sets[i % 4][1], w)
+
+    def plain(i):
+        return ref.cin_layer(sets[i % 4][0], sets[i % 4][1], w)
+
+    def materialised(i):
+        x0, xk, _ = sets[i % 4]
+        return torch.einsum("bhd,bfd->bdhf", xk, x0).reshape(b * d, k)
+
+    a0 = materialised(0)
+    return {
+        "shape": [b, f, h, hn, d], "flops": flops, "bytes": bytes_moved,
+        "kernel_ms": device_ms(kernel), "kernel_call_ms": call_ms(kernel),
+        "plain_ms": device_ms(plain),
+        # the library reference: the (B·D, H·F) operand materialised, then
+        # one cuBLAS SGEMM with w (TF32 off, as device.py sets it)
+        "library_ms": device_ms(lambda i: torch.matmul(materialised(i), w)),
+        "library_matmul_only_ms": device_ms(lambda i: torch.matmul(a0, w)),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+        else "operations",
+    }
+
+
 # ----------------------------------------------------------------------- parity
+
+
+def forward_launches(cfg) -> dict[str, int]:
+    """The launches one ``recsys.forward`` of ``cfg`` makes on the card: K1
+    once for the sparse fields (sum/mean pooling), K2 once for the DLRM dot
+    interaction, K3 once per CIN layer."""
+    return {"embedding_bag": int(bool(cfg.n_tables) and cfg.pooling in ("sum", "mean")),
+            "dot_interaction": int(cfg.interaction == "dot"),
+            "cin_layer": len(cfg.cin_layers) if cfg.interaction == "cin" else 0}
 
 
 def check_parity(seed: int, dev) -> list:
@@ -291,7 +427,7 @@ def check_parity(seed: int, dev) -> list:
     float32, rtol = atol = 1e-4: the two sum in different orders (Kahan in
     index order against torch.sum; cuBLAS against the CPU's matmul)."""
     rows = []
-    for name in PAPER_MODELS:
+    for name in configs.list_archs("recsys"):
         cfg = configs.get(name).smoke_config
         cpu_params = recsys.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
         batch = syn.recsys_batch(np.random.default_rng(seed), cfg, 13, with_label=False)
@@ -299,9 +435,12 @@ def check_parity(seed: int, dev) -> list:
         ops.reset_launch_counts()
         got = recsys.forward(tree_to(cpu_params, dev), cfg, to_device(batch, dev))
         err = compare(f"parity {cfg.name}", got.cpu(), want, 1e-4, 1e-4)
-        if ops.launch_counts()["embedding_bag"] != 1:
-            fail(f"parity {cfg.name}: forward on the card did not launch embedding_bag once")
-        rows.append({"config": cfg.name, "shape": list(got.shape), "max_abs_err": err})
+        launches = ops.launch_counts()
+        if launches != forward_launches(cfg):
+            fail(f"parity {cfg.name}: forward on the card launched {launches}, "
+                 f"expected {forward_launches(cfg)}")
+        rows.append({"config": cfg.name, "shape": list(got.shape), "max_abs_err": err,
+                     "launches": launches})
     return rows
 
 
@@ -317,7 +456,40 @@ def plain_forward_dot(params, cfg, batch: dict) -> torch.Tensor:
     return mlp(params["predict"][0], z, act="relu")[..., 0]
 
 
-def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
+def plain_forward_cin(params, cfg, batch: dict) -> torch.Tensor:
+    """xDeepFM forward through the plain versions only (no kernel launch)."""
+    emb = ref.embedding_bag_stacked(params["tables"], batch["sparse"], mode=cfg.pooling)
+    outs, xk = [], emb
+    for w in params["cin"]:
+        xk = ref.cin_layer(emb, xk, w)
+        outs.append(xk.sum(dim=-1))
+    logit_cin = linear(params["cin_linear"], torch.cat(outs, dim=-1))[..., 0]
+    logit_dnn = mlp(params["dnn"], emb.reshape(emb.shape[0], -1), act="relu")[..., 0]
+    logit_lin = torch.einsum("bfd,f->b", emb, params["lin_w"]) / cfg.embed_dim
+    return logit_cin + logit_dnn + logit_lin
+
+
+def plain_forward_autoint(params, cfg, batch: dict) -> torch.Tensor:
+    """AutoInt forward through the plain versions only (no kernel launch)."""
+    x = ref.embedding_bag_stacked(params["tables"], batch["sparse"], mode=cfg.pooling)
+    for lp in params["attn"]:
+        x = ix.autoint_layer(lp, x, n_heads=cfg.n_heads, d_attn=cfg.d_attn)
+    return mlp(params["predict"][0], x.reshape(x.shape[0], -1), act="relu")[..., 0]
+
+
+PLAIN_FORWARD = {"dot": plain_forward_dot, "cin": plain_forward_cin,
+                 "self-attn": plain_forward_autoint}
+
+
+def serve(seed: int, dev, params, cfg, *, qps: float, seconds: float, batch_size: int,
+          sla_ms: float | None = None, curve: bool = False) -> dict:
+    """``cfg`` at its published size behind ServingRuntime (2 workers),
+    fed ``query_stream`` for ``seconds``; an OnlineController climbs the
+    batch size when the model has an SLA target.  Launch counts are zeroed
+    just before the stream and read just after; they must be exactly
+    ``forward_launches(cfg)`` per request, so only the kernels this path
+    runs are required.  With ``curve``, one request per bucket is timed
+    through the worker's steps."""
     rng = np.random.default_rng(seed)
     # one pool of Zipf-id items made up front; a query is a window of it, so
     # the feeder thread paces arrivals instead of generating data
@@ -328,16 +500,23 @@ def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
         lo = int(rng.integers(0, pool_n - size + 1))
         return {k: v[lo:lo + size] for k, v in pool.items()}
 
-    def apply_fn(batch: dict) -> torch.Tensor:
+    def forward(batch: dict) -> torch.Tensor:
         return recsys.forward(params, cfg, batch)
+
+    n_requests, lock = [0], threading.Lock()
+
+    def apply_fn(batch: dict) -> torch.Tensor:
+        with lock:
+            n_requests[0] += 1
+        return forward(batch)
 
     # one request's logits against the plain versions, and a warm-up of cuBLAS
     probe = to_device(pad_batch(query_batch(200), 256), dev)
-    logit_err = compare("serve logits vs plain", apply_fn(probe),
-                        plain_forward_dot(params, cfg, probe), 1e-4, 1e-4)
+    logit_err = compare(f"serve {cfg.name} logits vs plain", forward(probe),
+                        PLAIN_FORWARD[cfg.interaction](params, cfg, probe), 1e-4, 1e-4)
 
-    rt = ServingRuntime(apply_fn, n_workers=2, batch_size=64, device=dev)
-    ctl = OnlineController(rt, sla_ms=SLA_TARGETS[SERVE_ARCH].medium_ms, window=50)
+    rt = ServingRuntime(apply_fn, n_workers=2, batch_size=batch_size, device=dev)
+    ctl = None if sla_ms is None else OnlineController(rt, sla_ms=sla_ms, window=50)
     ops.reset_launch_counts()
     n_submitted = 0
     t0 = time.monotonic()
@@ -350,7 +529,8 @@ def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
                 time.sleep(delay)
             rt.submit(q.qid, query_batch(q.size), q.size)
             n_submitted += 1
-            ctl.step()
+            if ctl is not None:
+                ctl.step()
         rt.drain(timeout=120)
         wall = time.monotonic() - t0
         done = rt.completed()
@@ -360,20 +540,30 @@ def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
 
     errors = [r.error for r in done if r.error is not None]
     if errors:
-        fail(f"serve: {len(errors)} queries errored, first: {errors[0]}")
+        fail(f"serve {cfg.name}: {len(errors)} queries errored, first: {errors[0]}")
     if len(done) != n_submitted or n_submitted == 0:
-        fail(f"serve: {len(done)} of {n_submitted} queries completed")
-    for kernel, n in launches.items():
-        if n == 0:
-            fail(f"serve: kernel {kernel} was never launched on the serving path")
+        fail(f"serve {cfg.name}: {len(done)} of {n_submitted} queries completed")
+    want = {k: n * n_requests[0] for k, n in forward_launches(cfg).items()}
+    if launches != want:
+        fail(f"serve {cfg.name}: {n_requests[0]} requests launched {launches}, expected {want}")
     lats = [r.latency_ms for r in done]
     if not all(np.isfinite(lats)) or min(lats) <= 0:
-        fail("serve: non-positive or non-finite latencies")
+        fail(f"serve {cfg.name}: non-positive or non-finite latencies")
+
+    out = {"phase": "serve" if curve else f"serve_{cfg.name}", "arch": cfg.name,
+           "qps_offered": qps, "seconds": wall, "queries": len(done),
+           "items": int(sum(r.size for r in done)), "requests": n_requests[0], "errors": 0,
+           "p50_ms": float(np.percentile(lats, 50)), "p95_ms": float(np.percentile(lats, 95)),
+           "sla_ms": sla_ms, "batch_size": batch_size, "final_batch_size": rt.batch_size,
+           "controller_history": None if ctl is None else ctl.history, "launches": launches,
+           "logits_max_abs_err_vs_plain": logit_err}
+    if not curve:
+        return out
 
     # median request latency per bucket through the worker's own steps, each
     # on the host's clock: pad on the host, move to the card, forward and
     # wait for the device (a one-item query pads nothing: 3 items into 4 do)
-    curve, steps = {}, {}
+    medians, steps = {}, {}
     for bucket in BUCKETS:
         ts = []
         for _ in range(12):
@@ -384,23 +574,95 @@ def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
             on_card = to_device(padded, dev)
             torch.cuda.synchronize()
             t2 = time.monotonic()
-            out = apply_fn(on_card)
+            res = forward(on_card)
             torch.cuda.synchronize()
             t3 = time.monotonic()
             ts.append(((t3 - t0) * 1e3, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
-        if out.shape != (bucket,) or not bool(torch.isfinite(out).all()):
-            fail(f"serve: bucket {bucket} gave shape {tuple(out.shape)} or non-finite logits")
+        if res.shape != (bucket,) or not bool(torch.isfinite(res).all()):
+            fail(f"serve: bucket {bucket} gave shape {tuple(res.shape)} or non-finite logits")
         total, pad, copy, fwd = (statistics.median(col) for col in zip(*ts[2:]))
-        curve[str(bucket)] = total
+        medians[str(bucket)] = total
         steps[str(bucket)] = {"pad_ms": pad, "copy_ms": copy, "forward_ms": fwd}
+    out.update({"bucket_median_ms": medians, "bucket_steps_ms": steps})
+    return out
 
-    return {"phase": "serve", "arch": cfg.name, "qps_offered": qps, "seconds": wall,
-            "queries": len(done), "items": int(sum(r.size for r in done)), "errors": 0,
-            "p50_ms": float(np.percentile(lats, 50)), "p95_ms": float(np.percentile(lats, 95)),
-            "sla_ms": ctl.sla_ms, "final_batch_size": rt.batch_size,
-            "controller_history": ctl.history, "launches": launches,
-            "logits_max_abs_err_vs_plain": logit_err, "bucket_median_ms": curve,
-            "bucket_steps_ms": steps}
+
+# -------------------------------------------------------------------------- zoo
+
+
+def host_ms(fn, n: int = 5) -> tuple[float, object]:
+    """Median host-clock time of ``fn()`` ended by a synchronise, after one
+    warm-up call; returns it with the last result."""
+    res = fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return statistics.median(times), res
+
+
+def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
+    """The four zoo models at their published sizes on the card, weights
+    from the seed.  Returns the phase's line and xDeepFM's parameters for
+    the serve phase that follows."""
+    shapes = configs.RECSYS_SHAPES
+    serve_b = shapes["serve_p99"].batch
+    n_cand = shapes["retrieval_cand"].n_candidates
+    rng = np.random.default_rng(seed)
+    rows, kept = [], {}
+    ops.reset_launch_counts()
+    for name in ZOO:
+        cfg = configs.get(name).config
+        params = recsys.init(gen, cfg, device=dev)
+        if cfg.interaction == "cin":
+            # lin_w starts at zero; a draw from the seed exercises the linear logit
+            params["lin_w"].normal_(generator=gen)
+        row = {"arch": name}
+        batch = to_device(syn.recsys_batch(rng, cfg, serve_b, with_label=False), dev)
+        row["forward_ms"], got = host_ms(lambda: recsys.forward(params, cfg, batch))
+        if got.shape != (serve_b,):
+            fail(f"zoo {name}: forward gave shape {tuple(got.shape)}")
+        if cfg.interaction in PLAIN_FORWARD:          # against the plain versions on the card
+            want, against = PLAIN_FORWARD[cfg.interaction](params, cfg, batch), "plain on the card"
+        else:                                         # no kernel on this path: against the CPU
+            want = recsys.forward(tree_to(params, "cpu"), cfg, to_device(batch, "cpu"))
+            against = "the same forward on the CPU"
+        row.update({"batch": serve_b, "against": against,
+                    "max_abs_err": compare(f"zoo {name} forward", got.cpu(), want.cpu(),
+                                           1e-4, 1e-4)})
+        if name == "xdeepfm":
+            bulk = to_device(syn.recsys_batch(rng, cfg, BULK_ROWS, with_label=False), dev)
+            row["bulk_ms"], out = host_ms(lambda: recsys.bulk_forward(params, cfg, bulk), n=1)
+            if out.shape != (BULK_ROWS,):
+                fail(f"zoo {name}: bulk_forward gave shape {tuple(out.shape)}")
+            head = recsys.forward(params, cfg, {k: v[:serve_b] for k, v in bulk.items()})
+            row.update({"bulk_rows": BULK_ROWS, "bulk_chunk": 16_384,
+                        "bulk_cut": f"{BULK_ROWS} of serve_bulk's {shapes['serve_bulk'].batch} rows",
+                        "bulk_rows_per_s": BULK_ROWS / row["bulk_ms"] * 1e3,
+                        "bulk_head_max_abs_err_vs_forward": compare(
+                            "zoo xdeepfm bulk vs forward", out[:serve_b], head, 1e-5, 1e-5)})
+            kept = params
+        if cfg.interaction in ("mind", "bidir-seq"):
+            cand = to_device(syn.recsys_batch(rng, cfg, 1, n_candidates=n_cand,
+                                              with_label=False), dev)
+            row["score_ms"], scores = host_ms(lambda: recsys.score_candidates(params, cfg, cand))
+            if scores.shape != (1, n_cand):
+                fail(f"zoo {name}: score_candidates gave shape {tuple(scores.shape)}")
+            want = recsys.score_candidates(tree_to(params, "cpu"), cfg, to_device(cand, "cpu"))
+            row.update({"candidates": n_cand, "score_max_abs_err_vs_cpu": compare(
+                f"zoo {name} scores", scores.cpu(), want, 1e-4, 1e-4)})
+        rows.append(row)
+        if name != "xdeepfm":
+            del params
+    launches = ops.launch_counts()
+    for kernel in ("embedding_bag", "cin_layer"):                 # the kernels of this path
+        if launches[kernel] == 0:
+            fail(f"zoo: kernel {kernel} was never launched")
+    return {"phase": "zoo", "rtol": 1e-4, "atol": 1e-4, "models": rows,
+            "launches": launches}, kept
 
 
 # ------------------------------------------------------------------------- main
@@ -409,8 +671,8 @@ def serve(seed: int, dev, params, cfg, qps: float, seconds: float) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--qps", type=float, default=100.0, help="offered load of the serve phase")
-    ap.add_argument("--seconds", type=float, default=4.0, help="length of the serve phase")
+    ap.add_argument("--qps", type=float, default=100.0, help="offered load of the serve phases")
+    ap.add_argument("--seconds", type=float, default=4.0, help="length of each serve phase")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -434,27 +696,57 @@ def main() -> None:
 
     eb_checks, eb_err = check_embedding_bag(rng, gen, dev, tables)
     ix_checks, ix_err = check_dot_interaction(gen, dev)
+    cin_checks, cin_err = check_cin_layer(gen, dev)
     eb_times = [time_embedding_bag(rng, dev, tables, b, ids)
                 for ids in ("zipf", "uniform") for b in MAIN_BATCHES]
     ix_times = [time_dot_interaction(gen, dev, b) for b in MAIN_BATCHES]
+    xdfm = configs.get("xdeepfm").config
+    xdfm_tables = torch.randn((xdfm.n_tables, xdfm.vocab, xdfm.embed_dim), generator=gen,
+                              device=dev)
+    eb_times_xdfm = [time_embedding_bag(rng, dev, xdfm_tables, b, "zipf", h=xdfm.hotness)
+                     for b in ZOO_BATCHES]
+    del xdfm_tables
+    cin_times = [time_cin_layer(gen, dev, b, f, h, hn, xdfm.embed_dim)
+                 for b in ZOO_BATCHES for f, h, hn in xdeepfm_cin_shapes()]
     emit({"phase": "kernel_checks", "card": card,
-          "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times},
-          "dot_interaction": {"checks": ix_checks, "timings_rmc2": ix_times}})
+          "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times,
+                            "timings_xdeepfm": eb_times_xdfm},
+          "dot_interaction": {"checks": ix_checks, "timings_rmc2": ix_times},
+          "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times}})
 
     emit({"phase": "parity", "rtol": 1e-4, "atol": 1e-4,
           "configs": check_parity(args.seed, dev)})
 
-    served = serve(args.seed, dev, params, cfg, args.qps, args.seconds)
+    served = serve(args.seed, dev, params, cfg, qps=args.qps, seconds=args.seconds,
+                   batch_size=64, sla_ms=SLA_TARGETS[SERVE_ARCH].medium_ms, curve=True)
     served["card"] = card
     emit(served)
+    del params, tables
 
+    zoo_line, xdfm_params = zoo(args.seed, dev, gen)
+    zoo_line["card"] = card
+    emit(zoo_line)
+
+    # neither package gives xDeepFM an SLA target: a fixed batch size of
+    # serve_p99's 512 and no controller
+    served_x = serve(args.seed, dev, xdfm_params, xdfm, qps=args.qps, seconds=args.seconds,
+                     batch_size=configs.RECSYS_SHAPES["serve_p99"].batch)
+    served_x["card"] = card
+    emit(served_x)
+
+    paths = (served["launches"], zoo_line["launches"], served_x["launches"])
+    total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times if t["batch"] == MAIN_BATCHES[-1])
+    k_max = max(h * f for f, h, _ in xdeepfm_cin_shapes())
+    cin_main = next(t for t in cin_times
+                    if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
+    b, f, h, hn, d = cin_main["shape"]
     emit({"kernels": [
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag.py:23",
-         "launches": served["launches"]["embedding_bag"], "max_abs_err": eb_err,
+         "launches": total["embedding_bag"], "max_abs_err": eb_err,
          "ms": eb_main["kernel_ms"], "call_ms": eb_main["kernel_call_ms"], "plain_ms": eb_main["plain_ms"],
          "bound_ms": eb_main["bound_ms"], "bound_by": eb_main["bound_by"],
          "library_ms": eb_main["library_ms"],
@@ -462,11 +754,20 @@ def main() -> None:
         {"name": "dot_interaction", "route": "cuda",
          "source": "src/repro_torch/csrc/interaction.cu",
          "replaces": "src/repro/kernels/interaction.py:24",
-         "launches": served["launches"]["dot_interaction"], "max_abs_err": ix_err,
+         "launches": total["dot_interaction"], "max_abs_err": ix_err,
          "ms": ix_main["kernel_ms"], "call_ms": ix_main["kernel_call_ms"], "plain_ms": ix_main["plain_ms"],
          "bound_ms": ix_main["bound_ms"], "bound_by": ix_main["bound_by"],
          "library_ms": ix_main["library_ms"],
          "shape": "feats (1024, 41, 32) float32"},
+        {"name": "cin_layer", "route": "cuda",
+         "source": "src/repro_torch/csrc/cin.cu",
+         "replaces": "src/repro/kernels/cin.py:20",
+         "launches": total["cin_layer"], "max_abs_err": cin_err,
+         "ms": cin_main["kernel_ms"], "call_ms": cin_main["kernel_call_ms"],
+         "plain_ms": cin_main["plain_ms"],
+         "bound_ms": cin_main["bound_ms"], "bound_by": cin_main["bound_by"],
+         "library_ms": cin_main["library_ms"],
+         "shape": f"x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), w ({h * f}, {hn}) float32"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,13 +15,19 @@ import torch
 
 def from_jax_params(tree, *, device: torch.device | str):
     """dict/list tree of numpy arrays → same-shaped tree of torch tensors
-    on ``device``.  Non-array leaves (ints, strings) pass through."""
+    on ``device``.  Non-array leaves (ints, strings) pass through, and so
+    does a 0-d integer array, as a Python ``int``: that is a static integer
+    of the JAX tree (QR's ``num_buckets``) that ``jax.tree.map(np.asarray,
+    ...)`` turned into an array, not a weight."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device=device) for v in tree]
     if isinstance(tree, (np.ndarray, np.generic)):
-        return _leaf(np.asarray(tree), device)
+        a = np.asarray(tree)
+        if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+            return int(a)
+        return _leaf(a, device)
     return tree
 
 

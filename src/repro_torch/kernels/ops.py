@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cin as _cin
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import interaction as _ix
 from repro_torch.kernels import ref
@@ -23,12 +24,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by this process since the last reset."""
-    return {"embedding_bag": _eb.launch_count, "dot_interaction": _ix.launch_count}
+    return {"embedding_bag": _eb.launch_count, "dot_interaction": _ix.launch_count,
+            "cin_layer": _cin.launch_count}
 
 
 def reset_launch_counts() -> None:
     _eb.launch_count = 0
     _ix.launch_count = 0
+    _cin.launch_count = 0
 
 
 def _require_contiguous(name: str, x: torch.Tensor) -> None:
@@ -112,3 +115,34 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
 def gram(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) → (B, F·F) flattened Gram matrices."""
     return _interaction(feats, packed=False)
+
+
+def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One xDeepFM CIN layer: x0 (B, F, D), xk (B, H, D), w (H·F, Hn) →
+    (B, Hn, D), ``out[b, n, d] = Σ_{h,f} w[h·F+f, n] · xk[b,h,d] · x0[b,f,d]``;
+    float32 accumulation, result in the inputs' dtype.  Neither ``D`` nor
+    the batch is padded."""
+    if x0.ndim != 3 or xk.ndim != 3 or w.ndim != 2:
+        raise ValueError(f"expected x0 (B, F, D), xk (B, H, D), w (H·F, Hn); got "
+                         f"{tuple(x0.shape)}, {tuple(xk.shape)}, {tuple(w.shape)}")
+    b, f, d = x0.shape
+    h = xk.shape[1]
+    if xk.shape[0] != b or xk.shape[2] != d:
+        raise ValueError(f"xk {tuple(xk.shape)} does not share B and D with x0 {tuple(x0.shape)}")
+    if f < 1 or h < 1:
+        raise ValueError(f"a CIN layer needs at least one field and one map, got F={f}, H={h}")
+    if w.shape[0] != h * f:
+        raise ValueError(f"w has {w.shape[0]} rows, H·F = {h}·{f} = {h * f}")
+    if x0.dtype not in _DTYPES or xk.dtype != x0.dtype or w.dtype != x0.dtype:
+        raise TypeError(f"x0, xk, w must share one dtype of float32/bfloat16, got "
+                        f"{x0.dtype}, {xk.dtype}, {w.dtype}")
+    if xk.device != x0.device or w.device != x0.device:
+        raise ValueError(f"x0 lies on {x0.device}, xk on {xk.device}, w on {w.device}")
+    if not x0.is_cuda:
+        return ref.cin_layer(x0, xk, w)
+    for name, t in (("x0", x0), ("xk", xk), ("w", w)):
+        _require_contiguous(name, t)
+    out = torch.empty((b, w.shape[1], d), dtype=x0.dtype, device=x0.device)
+    if out.numel():
+        _cin.launch(x0, xk, w, out)
+    return out

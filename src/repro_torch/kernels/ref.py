@@ -61,3 +61,18 @@ def dot_interaction_packed(feats: torch.Tensor) -> torch.Tensor:
     f = feats.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=feats.device)
     return gram(feats)[:, li * f + lj]
+
+
+def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One xDeepFM CIN layer: x0 (B, F, D), xk (B, H, D), w (H·F, Hn) →
+    (B, Hn, D), ``out[b, n, d] = Σ_{h,f} w[h·F+f, n] · xk[b,h,d] · x0[b,f,d]``.
+
+    The outer-product maps ``(B, H·F, D)`` are materialised, then
+    contracted with ``w``.  Products and sums are float32 (float64 for a
+    float64 input, which the card's checks use as the exact value); the
+    result is stored in ``x0``'s dtype."""
+    b, f, d = x0.shape
+    h = xk.shape[1]
+    acc = torch.promote_types(x0.dtype, torch.float32)
+    inter = torch.einsum("bhd,bfd->bhfd", xk.to(acc), x0.to(acc)).reshape(b, h * f, d)
+    return torch.einsum("bmd,mn->bnd", inter, w.to(acc)).to(x0.dtype)

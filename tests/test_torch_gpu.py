@@ -60,6 +60,26 @@ def test_dot_interaction_kernel(dev, b, f, d, dtype):
     torch.testing.assert_close(full.float(), ref.gram(feats).float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("b,f,h,hn,d", [
+    (8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130),   # tests/test_kernels.py
+    (4, 6, 16, 8, 10), (1, 39, 39, 200, 10), (65, 39, 200, 200, 10), (3, 1, 1, 1, 1),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cin_layer_kernel(dev, b, f, h, hn, d, dtype):
+    """float32 within 1e-4 (the CPU sweep's tolerance), bfloat16 2e-2."""
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy((rng.normal(size=(b, f, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
+    xk = torch.from_numpy((rng.normal(size=(b, h, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.normal(size=(h * f, hn)) / (h * f) ** 0.5).astype(np.float32)).to(dev, dtype)
+    before = ops.launch_counts()["cin_layer"]
+    got = ops.cin_layer(x0, xk, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cin_layer"] == before + 1
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    assert got.dtype == dtype and got.shape == (b, hn, d)
+    torch.testing.assert_close(got.float(), ref.cin_layer(x0, xk, w).float(), **tol)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     table = torch.zeros((10, 4), device=dev)
     with pytest.raises(TypeError, match="int32"):
@@ -70,10 +90,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.embedding_bag(table, torch.zeros((3, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="shared memory"):
         ops.dot_interaction(torch.zeros((1, 2000, 64), device=dev))
+    x0 = torch.zeros((2, 3, 4), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cin_layer(x0, x0, torch.zeros((6, 9), device=dev).t())
+    with pytest.raises(ValueError, match="lies on"):
+        ops.cin_layer(x0, x0, torch.zeros((9, 6)))
 
 
 @pytest.mark.parametrize("name", ["ncf", "wnd", "mt-wnd", "dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3",
-                                  "din", "dien"])
+                                  "din", "dien", "xdeepfm", "autoint", "mind", "bert4rec"])
 def test_forward_on_gpu_matches_cpu(dev, name):
     """Kernels on the card against plain versions on the CPU, same weights;
     1e-4 because cuBLAS and the CPU matmul sum in different orders."""
@@ -90,5 +115,9 @@ def test_forward_on_gpu_matches_cpu(dev, name):
             return [to(v) for v in tree]
         return tree.to(dev)
 
+    ops.reset_launch_counts()
     got = recsys.forward(to(params), cfg, to(batch))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    if name == "xdeepfm":          # K1 once, K3 once per CIN layer
+        assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": 0,
+                                       "cin_layer": len(cfg.cin_layers)}

@@ -49,7 +49,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "examples", "serve_recsys_torch.py")]
+             os.path.join(REPO, "examples", "serve_recsys_torch.py"),
+             os.path.join(REPO, "tools", "cin_tiling.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 25
@@ -77,13 +78,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     feats = torch.tensor([[[1.0, 0.0], [2.0, 1.0], [0.0, 3.0]]])
     assert torch.equal(ops.dot_interaction(feats), torch.tensor([[2.0, 0.0, 3.0]]))
     assert ops.gram(feats).shape == (1, 9)
-    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0}
+    x0 = torch.tensor([[[1.0, 2.0]]])                   # B=1, F=1, D=2
+    assert torch.equal(ops.cin_layer(x0, x0, torch.tensor([[3.0]])), torch.tensor([[[3.0, 12.0]]]))
+    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0}
 
 
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["embedding_bag.cu", "interaction.cu"]
+    assert names == ["cin.cu", "embedding_bag.cu", "interaction.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         assert "__global__" in text and 'extern "C"' in text

@@ -16,6 +16,7 @@ from repro.kernels import interaction as jax_ix_kernel
 from repro.kernels import ops as jax_ops
 from repro.layers import interactions as jax_ix
 from repro.models import recsys as jax_recsys
+from repro_torch.kernels import cin as cin_kernel
 from repro_torch.kernels import ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -127,6 +128,66 @@ def test_pair_order_matches_layer(fields):
     np.testing.assert_array_equal(li * (li - 1) // 2 + lj, p)   # the kernel's inversion
 
 
+@pytest.mark.parametrize("batch,f,h,hn,dim", [
+    (8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130),   # tests/test_kernels.py
+    (4, 6, 16, 8, 10),                                            # xDeepFM's D = 10
+])
+def test_cin_layer_matches_pallas(batch, f, h, hn, dim):
+    """rtol = atol = 1e-4, as tests/test_kernels.py holds the Pallas kernel."""
+    rng = np.random.default_rng(13)
+    x0 = (rng.normal(size=(batch, f, dim)) / dim ** 0.5).astype(np.float32)
+    xk = (rng.normal(size=(batch, h, dim)) / dim ** 0.5).astype(np.float32)
+    w = rng.normal(size=(h * f, hn)).astype(np.float32)
+    want = jax_ops.cin_layer(jnp.asarray(x0), jnp.asarray(xk), jnp.asarray(w),
+                             use_pallas=True, interpret=True)
+    got = ops.cin_layer(torch.from_numpy(x0), torch.from_numpy(xk), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (batch, hn, dim)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=1e-4, atol=1e-4)
+    # the plain version against the float64 value of the same sum
+    exact = np.einsum("bhd,bfd,hfn->bnd", xk.astype(np.float64), x0.astype(np.float64),
+                      w.reshape(h, f, hn).astype(np.float64))
+    np.testing.assert_allclose(got.double().numpy(), exact, rtol=1e-5, atol=1e-5)
+
+
+def test_cin_layer_bfloat16_accumulates_in_float32():
+    """bfloat16 in and out, float32 inside: the result is the float32 sum
+    of the bfloat16 inputs, rounded once."""
+    rng = np.random.default_rng(14)
+    x0, xk = (torch.from_numpy(rng.normal(size=(3, 5, 10)).astype(np.float32)).bfloat16()
+              for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(25, 6)).astype(np.float32)).bfloat16()
+    got = ops.cin_layer(x0, xk, w)
+    assert got.dtype == torch.bfloat16
+    want = ref.cin_layer(x0.float(), xk.float(), w.float()).bfloat16()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,k,want", [
+    (512, 7800, 1), (1024, 1521, 1),        # 320+ output tiles: every SM has two already
+    (256, 7800, 2), (64, 7800, 7), (1, 7800, 66), (1, 1521, 24),
+    (1, 48, 1),                             # 3 slices: too few to split
+])
+def test_cin_split_count(b, k, want):
+    """How K3 splits the reduction on a 132-SM card, at xDeepFM's D = 10,
+    Hn = 200: enough runs for two blocks per SM, never a run of fewer than
+    MIN_SLICES_PER_SPLIT slices of K."""
+    got = cin_kernel.split_count(b * 10, 200, k, 132)
+    assert got == want
+    slices = -(-k // cin_kernel.SLICE_K)
+    assert got == 1 or slices // got >= cin_kernel.MIN_SLICES_PER_SPLIT
+
+
+def test_cin_tile_constants_match_the_source():
+    """split_count sizes the workspace from the kernel's tile: the Python
+    constants must be csrc/cin.cu's defaults."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "cin.cu").read_text()
+    default = {k: int(v) for k, v in re.findall(r"#define (CIN_\w+) (\d+)", src)}
+    assert (default["CIN_BM"], default["CIN_BN"], default["CIN_BK"]) == \
+        (cin_kernel.BLOCK_M, cin_kernel.BLOCK_N, cin_kernel.SLICE_K)
+
+
 def test_wrappers_validate_arguments():
     table = torch.zeros((10, 4))
     idx = torch.zeros((3, 2), dtype=torch.int32)
@@ -144,9 +205,25 @@ def test_wrappers_validate_arguments():
         ops.dot_interaction(torch.zeros((3, 4)))
     with pytest.raises(TypeError, match="dtype"):
         ops.dot_interaction(torch.zeros((3, 4, 5), dtype=torch.float16))
+    x0, xk, w = torch.zeros((2, 3, 4)), torch.zeros((2, 5, 4)), torch.zeros((15, 6))
+    assert ops.cin_layer(x0, xk, w).shape == (2, 6, 4)
+    with pytest.raises(ValueError, match="expected x0"):
+        ops.cin_layer(x0[0], xk, w)
+    with pytest.raises(ValueError, match="share B and D"):
+        ops.cin_layer(x0, xk[:, :, :3], w)
+    with pytest.raises(ValueError, match="H·F"):
+        ops.cin_layer(x0, xk, w[:14])
+    with pytest.raises(ValueError, match="at least one field"):
+        ops.cin_layer(x0[:, :0], xk, w[:0])
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.cin_layer(x0, xk, w.bfloat16())
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.cin_layer(x0.double(), xk.double(), w.double())
 
 
 def test_empty_batch():
     assert ops.embedding_bag(torch.zeros((10, 4)),
                              torch.zeros((0, 2), dtype=torch.int32)).shape == (0, 4)
     assert ops.dot_interaction(torch.zeros((0, 5, 4))).shape == (0, 10)
+    assert ops.cin_layer(torch.zeros((0, 3, 4)), torch.zeros((0, 2, 4)),
+                         torch.zeros((6, 5))).shape == (0, 5, 4)

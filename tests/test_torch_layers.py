@@ -9,14 +9,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.layers import attention as jax_attn
 from repro.layers import embedding as jax_emb
 from repro.layers import interactions as jax_ix
 from repro.layers import mlp as jax_mlp
+from repro.layers import norms as jax_norms
 from repro.layers import rnn as jax_rnn
 from repro_torch import compat
+from repro_torch.kernels import ops
+from repro_torch.layers import attention
 from repro_torch.layers import embedding as emb
 from repro_torch.layers import interactions as ix
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import norms
 from repro_torch.layers import rnn
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -157,3 +162,159 @@ def test_from_jax_params_keeps_tree_and_dtypes():
     assert float(out["s"]) == 2.5
     bf = np.asarray(jnp.ones((2, 2), jnp.bfloat16))
     assert compat.from_jax_params({"w": bf}, device="cpu")["w"].dtype == torch.bfloat16
+    # a 0-d integer array is a static int of the JAX tree, not a weight
+    assert compat.from_jax_params({"n": np.asarray(5)}, device="cpu")["n"] == 5
+    assert isinstance(compat.from_jax_params(np.int32(3), device="cpu"), int)
+
+
+# ------------------------------------------------------------ the recsys zoo
+
+
+def test_cin_matches():
+    """Two layers at xDeepFM-smoke widths; on the CPU the layer takes the
+    plain version of the CIN kernel and launches nothing."""
+    rng = np.random.default_rng(7)
+    params = jax_ix.init_cin(KEY, 6, 8, (16, 12))
+    x0 = rng.normal(size=(5, 6, 8)).astype(np.float32)
+    want = jax_ix.cin(params, jnp.asarray(x0))
+    ops.reset_launch_counts()
+    got = ix.cin(_convert(params), _t(x0))
+    assert got.shape == want.shape == (5, 28)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert ops.launch_counts()["cin_layer"] == 0
+    own = ix.init_cin(torch.Generator().manual_seed(0), 6, 8, (16, 12), device="cpu")
+    assert [tuple(w.shape) for w in own] == [tuple(w.shape) for w in params]
+
+
+@pytest.mark.parametrize("dim,n_heads,d_attn", [(8, 2, 4), (16, 2, 32), (8, 1, 8)])
+def test_autoint_layer_matches(dim, n_heads, d_attn):
+    rng = np.random.default_rng(8)
+    params = jax_ix.init_autoint_layer(KEY, dim, n_heads, d_attn)
+    x = rng.normal(size=(4, 6, dim)).astype(np.float32)
+    want = jax_ix.autoint_layer(params, jnp.asarray(x), n_heads=n_heads, d_attn=d_attn)
+    got = ix.autoint_layer(_convert(params), _t(x), n_heads=n_heads, d_attn=d_attn)
+    assert got.shape == (4, 6, n_heads * d_attn)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_capsule_routing_matches(masked):
+    rng = np.random.default_rng(9)
+    params = jax_ix.init_capsule_routing(KEY, 8)
+    hist = rng.normal(size=(5, 7, 8)).astype(np.float32)
+    mask = (np.arange(7)[None] < rng.integers(1, 8, size=5)[:, None]) if masked else None
+    kw = dict(n_interests=3, n_iters=3)
+    want = jax_ix.capsule_routing(params, jnp.asarray(hist), **kw,
+                                  mask=None if mask is None else jnp.asarray(mask))
+    got = ix.capsule_routing(_convert(params), _t(hist), **kw,
+                             mask=None if mask is None else _t(mask))
+    assert got.shape == (5, 3, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_squash_matches():
+    """n²/(1+n²) · x/√(n²+1e-9), over the last axis; a zero vector stays 0."""
+    x = np.random.default_rng(10).normal(size=(4, 3, 5)).astype(np.float32)
+    x[0, 0] = 0.0
+    got = ix._squash(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_ix._squash(jnp.asarray(x))), **TOL)
+    assert not got[0, 0].any()
+    assert float(got.norm(dim=-1).max()) < 1.0
+
+
+def test_cross_network_matches():
+    rng = np.random.default_rng(11)
+    params = jax_ix.init_cross_network(KEY, 12, 3)
+    params = [{"w": p["w"], "b": p["b"] + 0.05} for p in params]
+    x0 = rng.normal(size=(6, 12)).astype(np.float32)
+    want = jax_ix.cross_network(params, jnp.asarray(x0))
+    np.testing.assert_allclose(ix.cross_network(_convert(params), _t(x0)).numpy(),
+                               np.asarray(want), **TOL)
+    own = ix.init_cross_network(torch.Generator().manual_seed(0), 12, 3, device="cpu")
+    assert [(p["w"].shape, p["b"].shape) for p in own] == [((12, 12), (12,))] * 3
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norms_match(kind):
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(3, 5, 16)) * 3 + 1).astype(np.float32)
+    scale = rng.normal(size=16).astype(np.float32)
+    if kind == "layer":
+        p = {"scale": scale, "bias": rng.normal(size=16).astype(np.float32)}
+        want = jax_norms.layer_norm({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+        got = norms.layer_norm(_convert(p), _t(x))
+        init = norms.init_layer_norm(16, device="cpu")
+        assert set(init) == {"scale", "bias"}
+    else:
+        p = {"scale": scale}
+        want = jax_norms.rms_norm({"scale": jnp.asarray(scale)}, jnp.asarray(x))
+        got = norms.rms_norm(_convert(p), _t(x))
+        init = norms.init_rms_norm(16, device="cpu")
+        assert set(init) == {"scale"}
+        # bfloat16 input: float32 inside, bfloat16 out
+        bf = norms.rms_norm(_convert(p), _t(x).bfloat16())
+        assert bf.dtype == torch.bfloat16
+        np.testing.assert_allclose(bf.float().numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n_heads,n_kv_heads", [(2, 2), (4, 2)])
+def test_attention_matches(causal, n_heads, n_kv_heads):
+    rng = np.random.default_rng(13)
+    params = jax_attn.init_attention(KEY, 16, n_heads, n_kv_heads, 8)
+    x = rng.normal(size=(3, 9, 16)).astype(np.float32)
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=8, causal=causal)
+    want = jax_attn.attention(params, jnp.asarray(x), **kw)
+    got = attention.attention(_convert(params), _t(x), **kw)
+    assert got.shape == (3, 9, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if causal:
+        # position s attends to positions <= s only: changing the last one
+        # leaves every earlier output as it was
+        x2 = x.copy()
+        x2[:, -1] += 5.0
+        got2 = attention.attention(_convert(params), _t(x2), **kw)
+        np.testing.assert_allclose(got2[:, :-1].numpy(), got[:, :-1].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_ragged_matches(mode):
+    rng = np.random.default_rng(14)
+    table = rng.normal(size=(30, 6)).astype(np.float32)
+    offsets = np.array([0, 3, 3, 7, 12], np.int32)          # bag 1 is empty
+    indices = rng.integers(0, 30, size=12).astype(np.int32)
+    want = jax_emb.embedding_bag_ragged(jnp.asarray(table), jnp.asarray(indices),
+                                        jnp.asarray(offsets), num_bags=4, mode=mode)
+    got = emb.embedding_bag_ragged(_t(table), _t(indices), _t(offsets), num_bags=4, mode=mode)
+    assert got.shape == (4, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    seg = emb.segment_ids_from_offsets(_t(offsets), 12)
+    np.testing.assert_array_equal(
+        seg.numpy(), np.asarray(jax_emb.segment_ids_from_offsets(jnp.asarray(offsets), 12)))
+    with pytest.raises(ValueError, match="pooling mode"):
+        emb.embedding_bag_ragged(_t(table), _t(indices), _t(offsets), num_bags=4, mode="none")
+
+
+def test_hashed_lookup_matches():
+    rng = np.random.default_rng(15)
+    table = rng.normal(size=(17, 4)).astype(np.float32)
+    idx = rng.integers(-1000, 10 ** 6, size=(5, 3)).astype(np.int32)
+    want = jax_emb.hashed_lookup(jnp.asarray(table), jnp.asarray(idx))
+    np.testing.assert_allclose(emb.hashed_lookup(_t(table), _t(idx)).numpy(), np.asarray(want),
+                               **TOL)
+
+
+@pytest.mark.parametrize("combine", ["mult", "add"])
+def test_qr_lookup_matches(combine):
+    """The QR tree carries an integer leaf (num_buckets) across compat."""
+    params = jax_emb.init_qr_tables(KEY, 1000, 8, num_buckets=37)
+    converted = _convert(params)
+    assert converted["num_buckets"] == 37 and isinstance(converted["num_buckets"], int)
+    idx = np.random.default_rng(16).integers(0, 1000, size=(6, 2)).astype(np.int32)
+    want = jax_emb.qr_lookup(params, jnp.asarray(idx), combine=combine)
+    got = emb.qr_lookup(converted, _t(idx), combine=combine)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    own = emb.init_qr_tables(torch.Generator().manual_seed(0), 1000, 8, num_buckets=37,
+                             device="cpu")
+    assert own["q"].shape == (28, 8) and own["r"].shape == (37, 8) and own["num_buckets"] == 37
