@@ -81,6 +81,7 @@ SERVE_ARCH = "dlrm-rmc2"
 ZOO = ("xdeepfm", "autoint", "mind", "bert4rec")
 ZOO_BATCHES = (1, 64, 512)                               # 512: RECSYS_SHAPES serve_p99
 BULK_ROWS = 65_536              # cut from serve_bulk's 262,144 rows to fit the script's time
+BULK_CHUNK = 16_384            # bulk_forward's default; divides BULK_ROWS, so no rounding
 KERNELS = ("embedding_bag", "dot_interaction", "cin_layer")
 
 
@@ -613,6 +614,18 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
     n_cand = shapes["retrieval_cand"].n_candidates
     rng = np.random.default_rng(seed)
     rows, kept = [], {}
+    expected = dict.fromkeys(ops.launch_counts(), 0)
+
+    def counted(fn, cfg, forwards: int = 1):
+        """``fn`` that adds the launches of its ``forwards`` forwards of
+        ``cfg`` to what the phase must have launched, each time it runs."""
+        def run():
+            for k, n in forward_launches(cfg).items():
+                expected[k] += n * forwards
+            return fn()
+        return run
+
+    assert BULK_ROWS % BULK_CHUNK == 0
     ops.reset_launch_counts()
     for name in ZOO:
         cfg = configs.get(name).config
@@ -622,7 +635,7 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
             params["lin_w"].normal_(generator=gen)
         row = {"arch": name}
         batch = to_device(syn.recsys_batch(rng, cfg, serve_b, with_label=False), dev)
-        row["forward_ms"], got = host_ms(lambda: recsys.forward(params, cfg, batch))
+        row["forward_ms"], got = host_ms(counted(lambda: recsys.forward(params, cfg, batch), cfg))
         if got.shape != (serve_b,):
             fail(f"zoo {name}: forward gave shape {tuple(got.shape)}")
         if cfg.interaction in PLAIN_FORWARD:          # against the plain versions on the card
@@ -635,11 +648,15 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
                                            1e-4, 1e-4)})
         if name == "xdeepfm":
             bulk = to_device(syn.recsys_batch(rng, cfg, BULK_ROWS, with_label=False), dev)
-            row["bulk_ms"], out = host_ms(lambda: recsys.bulk_forward(params, cfg, bulk), n=1)
+            row["bulk_ms"], out = host_ms(counted(
+                lambda: recsys.bulk_forward(params, cfg, bulk, chunk=BULK_CHUNK), cfg,
+                forwards=BULK_ROWS // BULK_CHUNK), n=1)
             if out.shape != (BULK_ROWS,):
                 fail(f"zoo {name}: bulk_forward gave shape {tuple(out.shape)}")
-            head = recsys.forward(params, cfg, {k: v[:serve_b] for k, v in bulk.items()})
-            row.update({"bulk_rows": BULK_ROWS, "bulk_chunk": 16_384,
+            head = counted(lambda: recsys.forward(params, cfg,
+                                                  {k: v[:serve_b] for k, v in bulk.items()}),
+                           cfg)()
+            row.update({"bulk_rows": BULK_ROWS, "bulk_chunk": BULK_CHUNK,
                         "bulk_cut": f"{BULK_ROWS} of serve_bulk's {shapes['serve_bulk'].batch} rows",
                         "bulk_rows_per_s": BULK_ROWS / row["bulk_ms"] * 1e3,
                         "bulk_head_max_abs_err_vs_forward": compare(
@@ -648,6 +665,7 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
         if cfg.interaction in ("mind", "bidir-seq"):
             cand = to_device(syn.recsys_batch(rng, cfg, 1, n_candidates=n_cand,
                                               with_label=False), dev)
+            # retrieval runs no kernel: a launch here breaks the count below
             row["score_ms"], scores = host_ms(lambda: recsys.score_candidates(params, cfg, cand))
             if scores.shape != (1, n_cand):
                 fail(f"zoo {name}: score_candidates gave shape {tuple(scores.shape)}")
@@ -658,9 +676,8 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
         if name != "xdeepfm":
             del params
     launches = ops.launch_counts()
-    for kernel in ("embedding_bag", "cin_layer"):                 # the kernels of this path
-        if launches[kernel] == 0:
-            fail(f"zoo: kernel {kernel} was never launched")
+    if launches != expected or not (launches["embedding_bag"] and launches["cin_layer"]):
+        fail(f"zoo: launched {launches}, expected {expected} (K1 and K3 at least once)")
     return {"phase": "zoo", "rtol": 1e-4, "atol": 1e-4, "models": rows,
             "launches": launches}, kept
 

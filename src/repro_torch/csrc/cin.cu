@@ -28,12 +28,10 @@
 //     after them, so one barrier per slice suffices;
 //   - each of the block's 256 threads accumulates a 4 x 4 tile in float32
 //     registers and reads its operands from shared memory as float4.
-// The tile sizes are compile-time constants (CIN_BM, CIN_BN, CIN_TM,
-// CIN_TN, CIN_BK; tools/cin_tiling.py times others).  Of nine tilings timed
-// on an H100 at xDeepFM's shapes (PERF.md), the 64 x 64 block with 4 x 4
-// thread tiles was the only one within 15 % of the fastest both at B = 512
-// (3 %) and at 16,384-row chunks (14 %): larger thread tiles leave too few
-// blocks to fill 132 SMs at B = 512.
+// Of nine tilings timed on an H100 at xDeepFM's shapes (PERF.md), the
+// 64 x 64 block with 4 x 4 thread tiles was the only one within 15 % of the
+// fastest both at B = 512 (3 %) and at 16,384-row chunks (14 %): larger
+// thread tiles leave too few blocks to fill 132 SMs at B = 512.
 // Split K: a small batch has few (row, column) tiles (B = 1 gives 4), and
 // each would walk all K/BK slices alone.  The caller then asks for
 // `splits` > 1: block z of the grid's third axis takes one run of slices
@@ -47,29 +45,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#ifndef CIN_BM
-#define CIN_BM 64
-#endif
-#ifndef CIN_BN
-#define CIN_BN 64
-#endif
-#ifndef CIN_TM
-#define CIN_TM 4
-#endif
-#ifndef CIN_TN
-#define CIN_TN 4
-#endif
-#ifndef CIN_BK
-#define CIN_BK 16
-#endif
-
 namespace {
 
-constexpr int BM = CIN_BM;                 // rows (b, d) of a block
-constexpr int BN = CIN_BN;                 // output channels n of a block
-constexpr int BK = CIN_BK;                 // slice of the reduction m = h*F + f
-constexpr int TM = CIN_TM;                 // a thread's register tile
-constexpr int TN = CIN_TN;
+// kernels/cin.py keeps copies of BM, BN and BK (BLOCK_M, BLOCK_N, SLICE_K)
+// to choose the split of K; a test holds them equal to these.
+constexpr int BM = 64;                     // rows (b, d) of a block
+constexpr int BN = 64;                     // output channels n of a block
+constexpr int BK = 16;                     // slice of the reduction m = h*F + f
+constexpr int TM = 4;                      // a thread's register tile
+constexpr int TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);
 constexpr int A_PER = BM * BK / THREADS;   // A values a thread forms per slice
 constexpr int W_PER = BK * BN / THREADS;   // w values a thread loads per slice

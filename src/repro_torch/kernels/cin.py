@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag import DTYPE_CODE
 
-# the kernel's block tile and K slice (CIN_BM, CIN_BN, CIN_BK in csrc/cin.cu)
+# the kernel's block tile and K slice (BM, BN, BK in csrc/cin.cu)
 BLOCK_M, BLOCK_N, SLICE_K = 64, 64, 16
 # blocks wanted in flight on each SM before the K dimension is split
 BLOCKS_PER_SM = 2

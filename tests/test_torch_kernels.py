@@ -179,12 +179,12 @@ def test_cin_split_count(b, k, want):
 
 def test_cin_tile_constants_match_the_source():
     """split_count sizes the workspace from the kernel's tile: the Python
-    constants must be csrc/cin.cu's defaults."""
+    constants must be csrc/cin.cu's."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "cin.cu").read_text()
-    default = {k: int(v) for k, v in re.findall(r"#define (CIN_\w+) (\d+)", src)}
-    assert (default["CIN_BM"], default["CIN_BN"], default["CIN_BK"]) == \
+    tile = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (tile["BM"], tile["BN"], tile["BK"]) == \
         (cin_kernel.BLOCK_M, cin_kernel.BLOCK_N, cin_kernel.SLICE_K)
 
 

@@ -148,6 +148,11 @@ def test_unknown_interaction_raises():
         recsys.forward({}, cfg, {})
 
 
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("no-such-model")
+
+
 def test_xdeepfm_structure_and_linear_logit():
     """No predict heads; lin_w starts at zeros; the linear logit is
     divided by embed_dim (checked with a non-zero lin_w)."""
