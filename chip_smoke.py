@@ -9,15 +9,17 @@ What it does, one JSON line per phase:
   env            card name and power limit (nvidia-smi), torch/CUDA versions
   build          compiles src/repro_torch/csrc/*.cu with nvcc, seconds taken
   kernel_checks  each hand-written kernel (K1 embedding bag, K2 dot
-                 interaction, K3 CIN layer) against its plain PyTorch
-                 version on the card: the shape x dtype sweep of the CPU
-                 tests plus the shapes the models give it, and timings at
-                 the DLRM-RMC2 and xDeepFM shapes (kernel, bound, plain
-                 version, library call)
+                 interaction, K3 CIN layer, K4 flash-decode attention)
+                 against its plain PyTorch version on the card: the shape x
+                 dtype sweep of the CPU tests plus the shapes the models
+                 give it, and timings at the DLRM-RMC2, xDeepFM and
+                 qwen2-0.5b shapes (kernel, bound, plain version, library
+                 call)
   parity         forward of every recsys smoke config (paper models and
-                 zoo) on the card (kernels) against the same weights and
-                 batch on the CPU (plain versions), and the launches each
-                 forward must make
+                 zoo), and prefill + 4 decode steps of every dense LM smoke
+                 config, on the card (kernels) against the same weights and
+                 inputs on the CPU (plain versions), and the launches each
+                 must make
   serve          DLRM-RMC2 at its published size behind ServingRuntime and
                  OnlineController, fed a Poisson stream of production-sized
                  queries; launch counts are zeroed just before and read just
@@ -31,6 +33,20 @@ What it does, one JSON line per phase:
   serve_xdeepfm  xDeepFM at its published size behind ServingRuntime at a
                  fixed batch size of 512 (no SLA target exists for it, so
                  no controller); exactly one K1 and three K3 per request
+  lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
+                 prefill of 8 prompts of 512 tokens into 1,024-slot caches,
+                 then 32 teacher-forced decode steps, each held against the
+                 same step with the plain attention on its own caches,
+                 beside the library attention's (the bf16 noise's witness);
+                 exactly 24 K4 launches a step and no K1-K3; one step with
+                 every K4 call held against the plain version, and one with
+                 a zeroed attention (the control the logits gate must fail)
+  lm_decode_32k  qwen2-0.5b at LM_SHAPES["decode_32k"]: B = 128 against
+                 caches of 32,768 slots (51.5 GB) filled from the seed; one
+                 step with every K4 call held against the plain version and
+                 its logits against the plain, library and zeroed
+                 attentions', then 8 decode steps timed against the step's
+                 bound; exactly 24 K4 launches a step
   kernels        per kernel: launches over the driven paths, max error, and
                  at its main-path shape its time on the card (CUDA-graph
                  replay, no host time between launches), the host's time for
@@ -44,6 +60,7 @@ exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -64,7 +81,7 @@ from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
-from repro_torch.models import recsys  # noqa: E402
+from repro_torch.models import lm, recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
 from repro_torch.serve.runtime import (OnlineController, ServingRuntime,  # noqa: E402
                                        to_device)
@@ -82,7 +99,17 @@ ZOO = ("xdeepfm", "autoint", "mind", "bert4rec")
 ZOO_BATCHES = (1, 64, 512)                               # 512: RECSYS_SHAPES serve_p99
 BULK_ROWS = 65_536              # cut from serve_bulk's 262,144 rows to fit the script's time
 BULK_CHUNK = 16_384            # bulk_forward's default; divides BULK_ROWS, so no rounding
-KERNELS = ("embedding_bag", "dot_interaction", "cin_layer")
+KERNELS = ("embedding_bag", "dot_interaction", "cin_layer", "decode_attention")
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # K4: tests/test_kernels.py's values
+# the logits of a bf16 LM step through K4 against the same step through the
+# plain attention: ||got - want|| / ||want||.  Set between the spread of
+# two correct attentions (K4 and the library's, both against the plain one:
+# up to 0.037 on an H100) and that of an attention that returns zeros
+# (above 1.2), which every run checks the gate would refuse (PERF.md)
+LOGITS_L2_TOL = 0.1
+LM_ARCH = "qwen2-0.5b"
+GEN_BATCH, GEN_PROMPT, GEN_CACHE, GEN_STEPS = 8, 512, 1024, 32
+DECODE_32K_STEPS = 8
 
 
 def emit(obj: dict) -> None:
@@ -144,7 +171,8 @@ def device_ms(fn, n_iter: int = 20, replays: int = 5) -> float:
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
             atol: float) -> float:
     """Max abs error; fails unless |got - want| <= atol + rtol*|want| everywhere."""
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     g, w = got.double(), want.double()
@@ -411,6 +439,138 @@ def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
     }
 
 
+def decode_inputs(gen, dev, b: int, hq: int, hkv: int, d: int, t: int,
+                  dtype=torch.bfloat16) -> tuple:
+    """q (B, Hq, D), k and v (B, T, Hkv, D) of unit normals, on the card."""
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def decode_positions(rng, b: int, t: int, kind, dev) -> torch.Tensor:
+    """pos (B,) int32 on the card: 'uniform' in [1, T], or one value for all."""
+    pos = rng.integers(1, t + 1, size=b) if kind == "uniform" else np.full(b, kind)
+    return torch.from_numpy(pos.astype(np.int32)).to(dev)
+
+
+def decode_compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """K4 against its plain version: rtol the JAX sweep's value for the
+    dtype, atol the same times the plain result's largest magnitude (never
+    more than the sweep's atol).  At a long cache every output is far below
+    1 (unit normals over 32,768 slots: ~0.01), so a fixed atol would pass
+    a kernel that zeroes its output or drops a run of slots; this does not."""
+    tol = DECODE_TOL[want.dtype]
+    return compare(name, got, want, tol, tol * min(1.0, float(want.abs().max())))
+
+
+def check_decode_attention(rng, gen, dev) -> tuple[list, float]:
+    """K4 against ref.decode_attention (``decode_compare``: float32 1e-4,
+    bfloat16 3e-2), each shape at pos uniform in [1, T] and at 0, 1 and T;
+    the main path's long caches (decode_32k, and B = 1, split into runs)
+    in float32.  Returns the checks and the largest error at qwen2-0.5b's
+    heads (G = 7, D = 64) in bfloat16, the main path's."""
+    checks, main_err = [], 0.0
+    qwen = configs.get(LM_ARCH).config
+    t32k = configs.LM_SHAPES["decode_32k"]
+    shapes = [("test_kernels", 2, 8, 2, 64, 256), ("test_kernels", 4, 4, 4, 32, 128),
+              ("test_kernels", 1, 16, 8, 128, 512),
+              (LM_ARCH, GEN_BATCH, qwen.n_heads, qwen.n_kv_heads, qwen.hd, GEN_CACHE),
+              (LM_ARCH, 3, qwen.n_heads, qwen.n_kv_heads, qwen.hd, 1000),    # T not a tile multiple
+              (LM_ARCH, 3, qwen.n_heads, qwen.n_kv_heads, qwen.hd, 1)]       # T = 1
+    for name in ("qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"):                 # D 8, 16 and phi3's 96
+        for cfg in (configs.get(name).smoke_config, configs.get(name).config):
+            if cfg.hd != qwen.hd:
+                shapes.append((cfg.name, 5, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 77))
+    dtypes = {s: (torch.float32, torch.bfloat16) for s in shapes}
+    for b in (t32k.global_batch, 1):          # bf16 here: time_decode_attention's checks
+        dtypes[("decode_32k", b, qwen.n_heads, qwen.n_kv_heads, qwen.hd, t32k.seq_len)] = (
+            torch.float32,)
+    for (name, b, hq, hkv, d, t), kinds in dtypes.items():
+        for dtype in kinds:
+            q, k, v = decode_inputs(gen, dev, b, hq, hkv, d, t, dtype)
+            for kind in ("uniform", 0, 1, t):
+                pos = decode_positions(rng, b, t, kind, dev)
+                want = ref.decode_attention(q, k, v, pos)
+                err = decode_compare(f"decode_attention {name} {b, hq, hkv, d, t} pos={kind} "
+                                     f"{dtype}", ops.decode_attention(q, k, v, pos), want)
+                checks.append({"shape": [b, hq, hkv, d, t], "from": name, "pos": kind,
+                               "dtype": str(dtype), "max_abs_err": err,
+                               "max_abs_want": float(want.abs().max()),
+                               "tol": DECODE_TOL[dtype]})
+                if name == LM_ARCH and dtype == torch.bfloat16:
+                    main_err = max(main_err, err)
+            del q, k, v
+    return checks, main_err
+
+
+def decode_mask(t: int, pos: torch.Tensor) -> torch.Tensor:
+    """(B, 1, 1, T) boolean: slot t of sequence b is attended iff t < pos[b]."""
+    return (torch.arange(t, device=pos.device)[None] < pos[:, None])[:, None, None]
+
+
+def library_decode(q, k, v, pos, mask=None) -> torch.Tensor:
+    """ref.decode_attention as one PyTorch library call: each KV head's G
+    query heads as G query rows, on transposed views of the cache.  A
+    yardstick and a witness, used nowhere in the port; pos >= 1 (a row
+    with every slot masked gives NaN here, not the mean of V)."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.view(b, hkv, hq // hkv, d), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=decode_mask(t, pos) if mask is None else mask)
+    return out.reshape(b, hq, d)
+
+
+def time_decode_attention(rng, gen, dev, b: int, t: int, pos_kind, n_sets: int = 1) -> dict:
+    """K4 at qwen2-0.5b's heads, bf16, B sequences against T slots.
+    ``n_sets`` caches rotate so that consecutive launches do not find the
+    last one's K/V in the 50 MB L2 (a decode step reads 24 layers' caches
+    in turn).  The bound reads K and V up to each sequence's pos once, q
+    and pos once, and writes the output once; its operations are
+    4·Hq·D per valid slot (q·k and p·v)."""
+    cfg = configs.get(LM_ARCH).config
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sets = [decode_inputs(gen, dev, b, hq, hkv, d, t) for _ in range(n_sets)]
+    pos = decode_positions(rng, b, t, pos_kind, dev)
+    n_valid = int(pos.clamp(max=t).sum())
+    es = sets[0][0].element_size()
+    bytes_moved = n_valid * hkv * d * es * 2 + 2 * b * hq * d * es + 4 * b
+    flops = 4 * n_valid * hq * d
+    mask = decode_mask(t, pos)
+
+    def kernel(i):
+        q, k, v = sets[i % n_sets]
+        return ops.decode_attention(q, k, v, pos)
+
+    def plain(i):
+        q, k, v = sets[i % n_sets]
+        return ref.decode_attention(q, k, v, pos)
+
+    def library(i):
+        q, k, v = sets[i % n_sets]
+        return library_decode(q, k, v, pos, mask)
+
+    err = decode_compare(f"decode_attention timing shape B={b} T={t} pos={pos_kind}",
+                         kernel(0), plain(0))
+    lib_err = float((library(0).float() - plain(0).float()).abs().max())
+    big = b * t >= 1 << 20                               # the plain version moves GBs a call
+    res = {
+        "batch": b, "slots": t, "pos": pos_kind, "valid_slots": n_valid, "bytes": bytes_moved,
+        "flops": flops, "max_abs_err_vs_plain": err, "library_max_abs_err_vs_plain": lib_err,
+        "kernel_ms": device_ms(kernel, n_iter=max(20, n_sets)),
+        "kernel_call_ms": call_ms(kernel, n_iter=max(20, n_sets)),
+        "plain_ms": device_ms(plain, n_iter=3 if big else 20, replays=2 if big else 5),
+        "library_ms": device_ms(library, n_iter=5 if big else 20, replays=2 if big else 5),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+        else "operations",
+    }
+    res["achieved_tb_per_s"] = bytes_moved / res["kernel_ms"] / 1e9
+    del sets
+    return res
+
+
 # ----------------------------------------------------------------------- parity
 
 
@@ -420,7 +580,14 @@ def forward_launches(cfg) -> dict[str, int]:
     interaction, K3 once per CIN layer."""
     return {"embedding_bag": int(bool(cfg.n_tables) and cfg.pooling in ("sum", "mean")),
             "dot_interaction": int(cfg.interaction == "dot"),
-            "cin_layer": len(cfg.cin_layers) if cfg.interaction == "cin" else 0}
+            "cin_layer": len(cfg.cin_layers) if cfg.interaction == "cin" else 0,
+            "decode_attention": 0}
+
+
+def decode_launches(cfg, steps: int) -> dict[str, int]:
+    """The launches ``steps`` decode steps of an LM make: K4 once per layer
+    a step, nothing else (prefill runs no kernel)."""
+    return {**dict.fromkeys(KERNELS, 0), "decode_attention": cfg.n_layers * steps}
 
 
 def check_parity(seed: int, dev) -> list:
@@ -442,7 +609,38 @@ def check_parity(seed: int, dev) -> list:
                  f"expected {forward_launches(cfg)}")
         rows.append({"config": cfg.name, "shape": list(got.shape), "max_abs_err": err,
                      "launches": launches})
+    for name in configs.list_archs("lm"):
+        rows.append(check_lm_parity(seed, dev, configs.get(name).smoke_config))
     return rows
+
+
+def check_lm_parity(seed: int, dev, cfg, prompt: int = 6, steps: int = 4) -> dict:
+    """prefill + ``steps`` teacher-forced decode steps of an LM smoke
+    config on the card (K4) against the CPU (plain attention), float32,
+    rtol = atol = 1e-4; K4 launches must be exactly n_layers × steps."""
+    cpu_params = lm.init(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, 3,
+                                         prompt + steps)["tokens"])
+    want, caches = lm.prefill(cpu_params, cfg, toks[:, :prompt], prompt + steps)
+    wants = [want]
+    for i in range(steps):
+        want, caches = lm.decode_step(cpu_params, cfg, toks[:, prompt + i], caches)
+        wants.append(want)
+    params, toks = tree_to(cpu_params, dev), toks.to(dev)
+    ops.reset_launch_counts()
+    got, caches = lm.prefill(params, cfg, toks[:, :prompt], prompt + steps)
+    gots = [got]
+    for i in range(steps):
+        got, caches = lm.decode_step(params, cfg, toks[:, prompt + i], caches)
+        gots.append(got)
+    launches = ops.launch_counts()
+    err = max(compare(f"parity {cfg.name} step {i}", g.cpu(), w, 1e-4, 1e-4)
+              for i, (g, w) in enumerate(zip(gots, wants)))
+    if launches != decode_launches(cfg, steps):
+        fail(f"parity {cfg.name}: prefill + {steps} steps launched {launches}, "
+             f"expected {decode_launches(cfg, steps)}")
+    return {"config": cfg.name, "prefill": prompt, "decode_steps": steps, "max_abs_err": err,
+            "launches": launches}
 
 
 # ------------------------------------------------------------------------ serve
@@ -682,6 +880,240 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
             "launches": launches}, kept
 
 
+# --------------------------------------------------------------------------- lm
+
+
+@contextlib.contextmanager
+def attention_as(fn):
+    """Within it, the layers' decode attention calls ``fn`` in place of
+    ``ops.decode_attention``."""
+    kernel = ops.decode_attention
+    ops.decode_attention = fn
+    try:
+        yield
+    finally:
+        ops.decode_attention = kernel
+
+
+def checked(errors: list):
+    """K4 as the layers call it, each call held against the plain version
+    on the same inputs (``decode_compare``); the errors are appended to
+    ``errors``."""
+    kernel = ops.decode_attention
+
+    def run(q, k, v, pos):
+        got = kernel(q, k, v, pos)
+        errors.append(decode_compare(f"decode_attention in the model, B={q.shape[0]} "
+                                     f"T={k.shape[1]}", got, ref.decode_attention(q, k, v, pos)))
+        return got
+    return run
+
+
+def zero_attention(q, k, v, pos):
+    """A broken attention that returns zeros: the control the logits gate
+    must be able to fail."""
+    return torch.zeros_like(q)
+
+
+def gate_logits(name: str, agree: dict, control: dict) -> None:
+    """Fails unless the kernel path's logits are within ``LOGITS_L2_TOL``
+    of the plain path's and the zeroed attention's are not."""
+    if agree["l2_rel"] > LOGITS_L2_TOL:
+        fail(f"{name}: logits differ from the plain path by {agree['l2_rel']:.3e} of their norm")
+    if control["l2_rel"] <= LOGITS_L2_TOL:
+        fail(f"{name}: a zeroed attention's logits are within {control['l2_rel']:.3e} of the "
+             f"plain path's: the gate cannot see a broken kernel")
+
+
+def copy_caches(caches: list[dict]) -> list[dict]:
+    return [{k: t.clone() for k, t in c.items()} for c in caches]
+
+
+def logits_against(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The kernel path's logits against the plain path's: max |got - want|
+    and the L2 difference, each relative to the plain logits' scale (max
+    |want|, ||want||), and the share of rows whose top-1 token agrees.
+    Both paths are bf16 networks of 24 layers: a 1-ulp difference in one
+    attention output changes the rounding of everything after it, so this
+    measures the network's own bf16 noise as much as the kernel (the
+    library attention in the kernel's place is the witness of that noise)."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        fail(f"{name}: logits of shape {tuple(g.shape)} (want {tuple(w.shape)}) or non-finite")
+    return {"max_rel": float((g - w).abs().max() / w.abs().max()),
+            "l2_rel": float((g - w).norm() / w.norm()),
+            "top1": float((g.argmax(-1) == w.argmax(-1)).float().mean())}
+
+
+def lm_generate(seed: int, dev, gen) -> dict:
+    """qwen2-0.5b at its published size, bf16: prefill GEN_BATCH prompts of
+    GEN_PROMPT tokens into caches of GEN_CACHE slots, then GEN_STEPS
+    teacher-forced decode steps, each timed on the host's clock and its
+    logits held against the same step through the plain attention on its
+    own copy of the caches (``LOGITS_L2_TOL``); the library attention runs
+    the same steps on a third copy, the witness of the bf16 network's
+    noise.  Launch counts are zeroed before the prefill and read after the
+    last step (the plain and library steps launch nothing).  Then the last
+    step is run again with every K4 call held against the plain version on
+    its inputs, once with a zeroed attention (the control the gate must
+    fail), and once as a CUDA graph for the device's time of a step."""
+    cfg = configs.get(LM_ARCH).config
+    params = lm.init(gen, cfg, device=dev)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, GEN_BATCH,
+                                         GEN_PROMPT + GEN_STEPS)["tokens"]).to(dev)
+    prompt = toks[:, :GEN_PROMPT]
+    lm.prefill(params, cfg, prompt, GEN_CACHE)                # warm-up: cuBLAS plans
+    ops.reset_launch_counts()
+    prefill_ms, (logits, caches) = host_ms(lambda: lm.prefill(params, cfg, prompt, GEN_CACHE),
+                                           n=3)
+    if logits.shape != (GEN_BATCH, cfg.vocab) or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"lm_generate: prefill gave shape {tuple(logits.shape)} or non-finite logits")
+    plain_caches, lib_caches = copy_caches(caches), copy_caches(caches)
+    step_ms, agree, lib_agree = [], [], []
+    for i in range(GEN_STEPS):
+        tok = toks[:, GEN_PROMPT + i]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got, caches = lm.decode_step(params, cfg, tok, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        with attention_as(ref.decode_attention):
+            want, plain_caches = lm.decode_step(params, cfg, tok, plain_caches)
+        with attention_as(library_decode):
+            lib, lib_caches = lm.decode_step(params, cfg, tok, lib_caches)
+        agree.append(logits_against(f"lm_generate step {i}", got, want))
+        lib_agree.append(logits_against(f"lm_generate library step {i}", lib, want))
+    launches = ops.launch_counts()
+    if launches != decode_launches(cfg, GEN_STEPS):
+        fail(f"lm_generate: {GEN_STEPS} steps launched {launches}, "
+             f"expected {decode_launches(cfg, GEN_STEPS)}")
+    del lib_caches
+    last = [dict(c, pos=c["pos"] - 1) for c in caches]        # rewound: the write repeats
+    k4_errs = []
+    with attention_as(checked(k4_errs)):
+        lm.decode_step(params, cfg, toks[:, -1], last)
+    with attention_as(zero_attention):
+        zeroed, _ = lm.decode_step(params, cfg, toks[:, -1], last)
+    control = logits_against("lm_generate zeroed attention", zeroed, want)
+    gate_logits("lm_generate", max(agree, key=lambda a: a["l2_rel"]), control)
+    graph_ms = device_ms(lambda i: lm.decode_step(params, cfg, toks[:, -1], last), n_iter=1)
+    decode_ms = statistics.median(step_ms[1:])
+    return {"phase": "lm_generate", "arch": LM_ARCH, "dtype": cfg.dtype,
+            "params": cfg.param_count, "batch": GEN_BATCH, "prompt": GEN_PROMPT,
+            "cache_slots": GEN_CACHE, "steps": GEN_STEPS, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": GEN_BATCH * GEN_PROMPT / prefill_ms * 1e3,
+            "decode_ms_per_step": decode_ms, "decode_ms_first_step": step_ms[0],
+            "decode_tokens_per_s": GEN_BATCH / decode_ms * 1e3,
+            "decode_device_ms_per_step_graph": graph_ms,
+            "logits_max_rel_err_vs_plain": max(a["max_rel"] for a in agree),
+            "logits_l2_rel_err_vs_plain": max(a["l2_rel"] for a in agree),
+            "logits_l2_tol": LOGITS_L2_TOL,
+            "top1_agreement": statistics.mean(a["top1"] for a in agree),
+            "library_logits_max_rel_err_vs_plain": max(a["max_rel"] for a in lib_agree),
+            "library_logits_l2_rel_err_vs_plain": max(a["l2_rel"] for a in lib_agree),
+            "library_top1_agreement": statistics.mean(a["top1"] for a in lib_agree),
+            "zeroed_attention_vs_plain": control,
+            "k4_calls_checked": len(k4_errs), "k4_max_abs_err_in_model": max(k4_errs),
+            "launches": launches}
+
+
+def lm_decode_32k(seed: int, dev, gen) -> dict:
+    """qwen2-0.5b at LM_SHAPES["decode_32k"]: B sequences against caches of
+    T slots, filled from the seed (a prefill of B·T tokens through the
+    plain quadratic attention would take minutes; the JAX package's decode
+    cell is defined the same way, one token against a full cache), pos =
+    T - DECODE_32K_STEPS.  A first step holds every K4 call against the
+    plain version on its inputs, and its logits are held against the same
+    step through the plain attention (``LOGITS_L2_TOL``), beside the
+    library attention's and a zeroed attention's (the caches rewound
+    between them).
+    Then K4 alone over the 24 layers' caches, the step as a CUDA graph, and
+    DECODE_32K_STEPS steps on the host's clock, launch counts zeroed before
+    those and read after."""
+    cfg = configs.get(LM_ARCH).config
+    shape = configs.LM_SHAPES["decode_32k"]
+    b, t = shape.global_batch, shape.seq_len
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(gen, cfg, device=dev)
+    caches = lm.init_caches(cfg, b, t, device=dev)
+    start = t - DECODE_32K_STEPS
+    for c in caches:
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, b,
+                                         DECODE_32K_STEPS + 1)["tokens"]).to(dev)
+
+    def rewind():
+        for c in caches:
+            c["pos"].fill_(start)
+
+    rewind()
+    k4_errs = []
+    with attention_as(checked(k4_errs)):
+        got, _ = lm.decode_step(params, cfg, toks[:, 0], caches)
+    rewind()
+    with attention_as(ref.decode_attention):
+        want, _ = lm.decode_step(params, cfg, toks[:, 0], caches)
+    agree = {"k4": logits_against("lm_decode_32k", got, want)}
+    for name, fn in (("library", library_decode), ("zeroed_attention", zero_attention)):
+        rewind()
+        with attention_as(fn):
+            other, _ = lm.decode_step(params, cfg, toks[:, 0], caches)
+        agree[name] = logits_against(f"lm_decode_32k {name}", other, want)
+    gate_logits("lm_decode_32k", agree["k4"], agree["zeroed_attention"])
+    del got, want, other
+
+    # K4 alone at this step's shape, over the 24 layers' caches in turn
+    q = torch.randn((b, cfg.n_heads, cfg.hd), generator=gen, device=dev).to(torch.bfloat16)
+    n = torch.full((b,), start + 1, dtype=torch.int32, device=dev)
+    k4_ms = device_ms(lambda i: ops.decode_attention(q, caches[i % cfg.n_layers]["k"],
+                                                     caches[i % cfg.n_layers]["v"], n),
+                      n_iter=cfg.n_layers, replays=3)
+    rewind()
+    graph_ms = device_ms(lambda i: lm.decode_step(params, cfg, toks[:, 0], caches), n_iter=1)
+
+    rewind()
+    ops.reset_launch_counts()
+    step_ms = []
+    for i in range(DECODE_32K_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, caches = lm.decode_step(params, cfg, toks[:, i + 1], caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    launches = ops.launch_counts()
+    if launches != decode_launches(cfg, DECODE_32K_STEPS):
+        fail(f"lm_decode_32k: {DECODE_32K_STEPS} steps launched {launches}, "
+             f"expected {decode_launches(cfg, DECODE_32K_STEPS)}")
+    if logits.shape != (b, cfg.vocab) or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"lm_decode_32k: logits of shape {tuple(logits.shape)} or non-finite")
+    if caches[0]["pos"].tolist() != [t] * b:
+        fail("lm_decode_32k: the caches' pos did not reach T")
+    # the step's bound: K and V up to pos + 1 of every layer, read once
+    # (mean over the timed steps), and every weight read once
+    valid = statistics.mean(start + 1 + i for i in range(DECODE_32K_STEPS))
+    kv_bytes = cfg.n_layers * 2 * b * valid * cfg.n_kv_heads * cfg.hd * 2
+    weight_bytes = cfg.param_count * 2
+    step = statistics.median(step_ms)
+    res = {"phase": "lm_decode_32k", "arch": LM_ARCH, "shape": "decode_32k", "batch": b,
+           "cache_slots": t, "pos_start": start, "steps": DECODE_32K_STEPS,
+           "cache_bytes": sum(c["k"].numel() * 4 for c in caches),
+           "ms_per_step": step, "ms_per_step_all": step_ms, "device_ms_per_step_graph": graph_ms,
+           "bound_ms_per_step": (kv_bytes + weight_bytes) / HBM_BYTES_PER_S * 1e3,
+           "tokens_per_s": b / step * 1e3, "k4_ms_per_layer": k4_ms,
+           "k4_share_of_step": cfg.n_layers * k4_ms / step,
+           "k4_share_of_graph_step": cfg.n_layers * k4_ms / graph_ms,
+           "k4_calls_checked": len(k4_errs), "k4_max_abs_err_in_model": max(k4_errs),
+           "logits_vs_plain": agree, "logits_l2_tol": LOGITS_L2_TOL,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    del caches, params
+    return res
+
+
 # ------------------------------------------------------------------------- main
 
 
@@ -725,11 +1157,21 @@ def main() -> None:
     del xdfm_tables
     cin_times = [time_cin_layer(gen, dev, b, f, h, hn, xdfm.embed_dim)
                  for b in ZOO_BATCHES for f, h, hn in xdeepfm_cin_shapes()]
+    da_checks, da_err = check_decode_attention(rng, gen, dev)
+    t32k = configs.LM_SHAPES["decode_32k"]
+    da_main = time_decode_attention(rng, gen, dev, t32k.global_batch, t32k.seq_len, t32k.seq_len)
+    da_times = [da_main,
+                time_decode_attention(rng, gen, dev, t32k.global_batch, t32k.seq_len, "uniform"),
+                time_decode_attention(rng, gen, dev, 1, t32k.seq_len, t32k.seq_len, n_sets=8),
+                time_decode_attention(rng, gen, dev, GEN_BATCH, GEN_CACHE,
+                                      GEN_PROMPT + GEN_STEPS // 2, n_sets=24)]
+    da_err = max([da_err] + [t["max_abs_err_vs_plain"] for t in da_times])
     emit({"phase": "kernel_checks", "card": card,
           "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times,
                             "timings_xdeepfm": eb_times_xdfm},
           "dot_interaction": {"checks": ix_checks, "timings_rmc2": ix_times},
-          "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times}})
+          "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times},
+          "decode_attention": {"checks": da_checks, "timings_qwen2": da_times}})
 
     emit({"phase": "parity", "rtol": 1e-4, "atol": 1e-4,
           "configs": check_parity(args.seed, dev)})
@@ -750,8 +1192,19 @@ def main() -> None:
                      batch_size=configs.RECSYS_SHAPES["serve_p99"].batch)
     served_x["card"] = card
     emit(served_x)
+    del xdfm_params
 
-    paths = (served["launches"], zoo_line["launches"], served_x["launches"])
+    generated = lm_generate(args.seed, dev, gen)
+    generated["card"] = card
+    emit(generated)
+
+    # last, with the earlier phases' tensors freed: 51.5 GB of KV cache
+    decoded = lm_decode_32k(args.seed, dev, gen)
+    decoded["card"] = card
+    emit(decoded)
+
+    paths = (served["launches"], zoo_line["launches"], served_x["launches"],
+             generated["launches"], decoded["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times if t["batch"] == MAIN_BATCHES[-1])
@@ -759,6 +1212,7 @@ def main() -> None:
     cin_main = next(t for t in cin_times
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
     b, f, h, hn, d = cin_main["shape"]
+    qwen = configs.get(LM_ARCH).config
     emit({"kernels": [
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -785,6 +1239,17 @@ def main() -> None:
          "bound_ms": cin_main["bound_ms"], "bound_by": cin_main["bound_by"],
          "library_ms": cin_main["library_ms"],
          "shape": f"x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), w ({h * f}, {hn}) float32"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:23",
+         "launches": total["decode_attention"], "max_abs_err": da_err,
+         "ms": da_main["kernel_ms"], "call_ms": da_main["kernel_call_ms"],
+         "plain_ms": da_main["plain_ms"],
+         "bound_ms": da_main["bound_ms"], "bound_by": da_main["bound_by"],
+         "library_ms": da_main["library_ms"],
+         "shape": f"decode_32k: q ({t32k.global_batch}, {qwen.n_heads}, {qwen.hd}), "
+                  f"k/v ({t32k.global_batch}, {t32k.seq_len}, {qwen.n_kv_heads}, {qwen.hd}) "
+                  f"bfloat16, pos = T"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
-"""Config registry of the port: the eight DeepRecInfra paper models and the
-rest of the recsys zoo (xDeepFM, AutoInt, MIND, BERT4Rec), with the
-recommendation input shapes (``RECSYS_SHAPES``).
+"""Config registry of the port: the eight DeepRecInfra paper models, the
+rest of the recsys zoo (xDeepFM, AutoInt, MIND, BERT4Rec) and the three
+dense LMs (qwen2-0.5b, phi3-mini-3.8b, yi-34b), with the input shapes of
+each family (``RECSYS_SHAPES``, ``LM_SHAPES``).
 
 ``--arch <id>`` in the port's entry points resolves through ``get``.
 """
@@ -9,7 +10,16 @@ from repro_torch.configs import (  # noqa: F401 — registration side effects
     bert4rec,
     mind,
     paper_models,
+    phi3_mini_3_8b,
+    qwen2_0_5b,
     xdeepfm,
+    yi_34b,
 )
 from repro_torch.configs.registry import ArchSpec, get, list_archs  # noqa: F401
-from repro_torch.configs.shapes import RECSYS_SHAPES, RecShape  # noqa: F401
+from repro_torch.configs.shapes import (  # noqa: F401
+    FULL_ATTENTION_SKIPS,
+    LM_SHAPES,
+    RECSYS_SHAPES,
+    LMShape,
+    RecShape,
+)

@@ -1,4 +1,5 @@
-"""Synthetic recommendation batches with a planted learnable signal.
+"""Synthetic recommendation batches with a planted learnable signal, and
+LM token streams.
 
 Everything here is numpy on the host: a serving runtime pads a request on
 the host and moves the padded request to the device in one step.
@@ -9,6 +10,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.models.lm import LMConfig
 from repro_torch.models.recsys import RecConfig
 
 
@@ -81,3 +83,21 @@ def _zipf_ids(rng, shape, vocab: int) -> np.ndarray:
     u = rng.random(size=shape)
     ids = np.floor(vocab ** u).astype(np.int64) - 1
     return np.clip(ids, 0, vocab - 1)
+
+
+# ---------------------------------------------------------------------- lm
+
+
+def lm_batch(rng: np.random.Generator, cfg: LMConfig, batch: int, seq: int) -> dict:
+    """Markov-chain token stream (learnable next-token structure): tokens
+    and next-token labels, (B, S) int32 each.  Draws from ``rng`` in the
+    JAX package's order, so one seed gives both packages the same tokens."""
+    v = cfg.vocab
+    toks = np.empty((batch, seq + 1), np.int64)
+    toks[:, 0] = rng.integers(0, v, size=batch)
+    noise = rng.random(size=(batch, seq)) < 0.15
+    rand = rng.integers(0, v, size=(batch, seq))
+    for t in range(seq):
+        nxt = (toks[:, t] * 31 + 17) % v
+        toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}

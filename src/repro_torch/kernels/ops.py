@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cin as _cin
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import interaction as _ix
 from repro_torch.kernels import ref
@@ -25,13 +26,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by this process since the last reset."""
     return {"embedding_bag": _eb.launch_count, "dot_interaction": _ix.launch_count,
-            "cin_layer": _cin.launch_count}
+            "cin_layer": _cin.launch_count, "decode_attention": _da.launch_count}
 
 
 def reset_launch_counts() -> None:
     _eb.launch_count = 0
     _ix.launch_count = 0
     _cin.launch_count = 0
+    _da.launch_count = 0
 
 
 def _require_contiguous(name: str, x: torch.Tensor) -> None:
@@ -145,4 +147,48 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
     out = torch.empty((b, w.shape[1], d), dtype=x0.dtype, device=x0.device)
     if out.numel():
         _cin.launch(x0, xk, w, out)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """One query token per sequence against its KV cache: q (B, Hq, D),
+    k/v (B, T, Hkv, D), pos (B,) → (B, Hq, D).  Query head ``h·G + g``
+    (G = Hq / Hkv) reads KV head ``h``; slots ``t >= pos[b]`` are masked
+    (all of them for ``pos <= 0``, which gives the mean of V).  float32
+    inside, result in q's dtype.  ``pos`` is int32 on the GPU; the kernel
+    takes D in ``HEAD_DIMS`` and G in ``GROUPS`` of ``kernels.decode_attention``."""
+    if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape or pos.ndim != 1:
+        raise ValueError(f"expected q (B, Hq, D), k and v (B, T, Hkv, D), pos (B,); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, {tuple(pos.shape)}")
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or pos.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and pos {tuple(pos.shape)} "
+                         f"do not share B and D")
+    if t < 1 or hkv < 1 or hq % hkv != 0:
+        raise ValueError(f"need T >= 1 and Hq a multiple of Hkv, got T={t}, Hq={hq}, Hkv={hkv}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32/bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"pos must be an integer tensor, got {pos.dtype}")
+    if any(x.device != q.device for x in (k, v, pos)):
+        raise ValueError(f"q lies on {q.device}, k on {k.device}, v on {v.device}, "
+                         f"pos on {pos.device}")
+    if not q.is_cuda:
+        return ref.decode_attention(q, k, v, pos)
+    if pos.dtype != torch.int32:
+        raise TypeError(f"pos must be int32 on the GPU, got {pos.dtype}")
+    if d not in _da.HEAD_DIMS or hq // hkv not in _da.GROUPS:
+        raise ValueError(f"the kernel takes D in {_da.HEAD_DIMS} and Hq/Hkv in {_da.GROUPS}, "
+                         f"got D={d}, Hq/Hkv={hq // hkv}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos)):
+        _require_contiguous(name, x)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    if b:
+        _da.launch(q, k, v, pos, out)
     return out

@@ -6,6 +6,8 @@ Nothing on the serving path calls them for a CUDA tensor.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -76,3 +78,24 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
     acc = torch.promote_types(x0.dtype, torch.float32)
     inter = torch.einsum("bhd,bfd->bhfd", xk.to(acc), x0.to(acc)).reshape(b, h * f, d)
     return torch.einsum("bmd,mn->bnd", inter, w.to(acc)).to(x0.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Grouped decode attention against a position-masked KV cache.
+
+    q (B, Hq, D); k, v (B, T, Hkv, D); pos (B,) valid length per sequence
+    → (B, Hq, D).  Query head ``h·G + g`` reads KV head ``h``.  Slots
+    ``t >= pos[b]`` score -1e30, so ``pos <= 0`` masks every slot and the
+    softmax is uniform: the result is then the mean of V over all T.
+    float32 throughout (what the kernel does); the result is cast to q's
+    dtype."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg, k.float()) / math.sqrt(d)
+    mask = (torch.arange(t, device=q.device)[None] < pos[:, None])[:, None, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)

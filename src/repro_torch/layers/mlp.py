@@ -1,5 +1,5 @@
 """MLP stacks: the Dense-FC / Predict-FC blocks of the generalized
-recommendation architecture (paper Fig. 2).
+recommendation architecture (paper Fig. 2), and the LMs' SwiGLU FFN.
 
 Parameters are plain dictionaries of tensors.  A linear layer stores ``w``
 as ``(d_in, d_out)`` and computes ``x @ w`` — the layout of the JAX
@@ -73,3 +73,16 @@ def mlp(params, x: torch.Tensor, *, act: str = "relu",
         elif final_act is not None:
             x = _ACTS[final_act](x)
     return x
+
+
+def init_ffn_swiglu(generator: torch.Generator, d_model: int, d_ff: int, *,
+                    dtype: torch.dtype = torch.float32, device: torch.device | str):
+    """LLaMA-style gated FFN: (silu(x W_g) * x W_u) W_d, no biases."""
+    kw = dict(bias=False, dtype=dtype, device=device)
+    return {"wg": init_linear(generator, d_model, d_ff, **kw),
+            "wu": init_linear(generator, d_model, d_ff, **kw),
+            "wd": init_linear(generator, d_ff, d_model, **kw)}
+
+
+def ffn_swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    return linear(params["wd"], F.silu(linear(params["wg"], x)) * linear(params["wu"], x))

@@ -4,7 +4,9 @@ Needs a CUDA device and nvcc; skipped elsewhere.
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: float32 2e-5, bfloat16 2e-2 (rtol = atol): both sides accumulate
-in float32, in different orders."""
+in float32, in different orders.  K3 and K4 hold float32 to 1e-4, and K4
+bfloat16 to 3e-2, the values tests/test_kernels.py holds their Pallas
+kernels to."""
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,7 @@ import torch
 from repro_torch import configs
 from repro_torch.data import synthetic as syn
 from repro_torch.kernels import ops, ref
-from repro_torch.models import recsys
+from repro_torch.models import lm, recsys
 
 pytestmark = pytest.mark.gpu
 
@@ -80,6 +82,62 @@ def test_cin_layer_kernel(dev, b, f, h, hn, d, dtype):
     torch.testing.assert_close(got.float(), ref.cin_layer(x0, xk, w).float(), **tol)
 
 
+def _decode_inputs(dev, b, hq, hkv, d, t, dtype, seed=3):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+               for shape in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    return q, k, v, rng
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,t", [
+    (2, 8, 2, 64, 256), (4, 4, 4, 32, 128), (1, 16, 8, 128, 512),   # tests/test_kernels.py
+    (3, 14, 2, 64, 1000), (1, 14, 2, 64, 32768),                    # qwen2-0.5b: G = 7
+    (5, 7, 1, 8, 77), (2, 8, 2, 8, 1), (3, 4, 4, 16, 130),          # the smoke configs' D
+    (2, 32, 32, 96, 300), (1, 56, 8, 128, 4097),                    # phi3 (D = 96), yi (G = 7)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel(dev, b, hq, hkv, d, t, dtype):
+    """pos drawn from [1, T] plus the edges 0, 1 and T; float32 within
+    1e-4, bfloat16 within 3e-2, as tests/test_kernels.py holds the Pallas
+    kernel."""
+    q, k, v, rng = _decode_inputs(dev, b, hq, hkv, d, t, dtype)
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    for pos in (rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t)):
+        pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+        before = ops.launch_counts()["decode_attention"]
+        got = ops.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == (b, hq, d)
+        torch.testing.assert_close(got.float(), ref.decode_attention(q, k, v, pos).float(), **tol)
+    again = ops.decode_attention(q, k, v, pos)
+    assert torch.equal(again, got)                 # no atomics: the same bits every run
+
+
+def test_decode_attention_kernel_past_the_cache(dev):
+    """pos > T reads every slot, as pos = T does."""
+    q, k, v, _ = _decode_inputs(dev, 2, 14, 2, 64, 100, torch.float32)
+    at_t = ops.decode_attention(q, k, v, torch.full((2,), 100, dtype=torch.int32, device=dev))
+    past = ops.decode_attention(q, k, v, torch.full((2,), 250, dtype=torch.int32, device=dev))
+    assert torch.equal(at_t, past)
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v, _ = _decode_inputs(dev, 2, 8, 2, 64, 16, torch.float32)
+    pos = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        ops.decode_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                             v[..., :48].contiguous(), pos)
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        ops.decode_attention(torch.zeros((2, 6, 64), device=dev), k, v, pos)   # G = 3
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, pos)
+    with pytest.raises(ValueError, match="lies on"):
+        ops.decode_attention(q, k, v, pos.cpu())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     table = torch.zeros((10, 4), device=dev)
     with pytest.raises(TypeError, match="int32"):
@@ -120,4 +178,31 @@ def test_forward_on_gpu_matches_cpu(dev, name):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     if name == "xdeepfm":          # K1 once, K3 once per CIN layer
         assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": 0,
-                                       "cin_layer": len(cfg.cin_layers)}
+                                       "cin_layer": len(cfg.cin_layers), "decode_attention": 0}
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"])
+def test_lm_decode_on_gpu_matches_cpu(dev, name):
+    """prefill + 3 decode steps of a dense LM smoke config: K4 on the card
+    against the plain attention on the CPU, float32 within 1e-4; K4 once
+    per layer a step, nothing else."""
+    cfg = configs.get(name).smoke_config
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(0), cfg, 3, 8)["tokens"])
+    want, caches = lm.prefill(params, cfg, toks[:, :5], 8)
+    wants = [want]
+    for t in range(5, 8):
+        want, caches = lm.decode_step(params, cfg, toks[:, t], caches)
+        wants.append(want)
+    params_d = torch.utils._pytree.tree_map(lambda x: x.to(dev), params)
+    ops.reset_launch_counts()
+    got, caches = lm.prefill(params_d, cfg, toks[:, :5].to(dev), 8)
+    gots = [got]
+    for t in range(5, 8):
+        got, caches = lm.decode_step(params_d, cfg, toks[:, t].to(dev), caches)
+        gots.append(got)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0,
+                                   "decode_attention": 3 * cfg.n_layers}
+    for g, w in zip(gots, wants):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -79,13 +79,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert ops.gram(feats).shape == (1, 9)
     x0 = torch.tensor([[[1.0, 2.0]]])                   # B=1, F=1, D=2
     assert torch.equal(ops.cin_layer(x0, x0, torch.tensor([[3.0]])), torch.tensor([[[3.0, 12.0]]]))
-    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0}
+    kv = torch.tensor([[[[1.0, 2.0]], [[3.0, 4.0]]]])   # B=1, T=2, Hkv=1, D=2
+    out = ops.decode_attention(torch.zeros((1, 2, 2)), kv, kv, torch.tensor([1], dtype=torch.int32))
+    assert torch.equal(out, torch.tensor([[[1.0, 2.0], [1.0, 2.0]]]))
+    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0,
+                                   "decode_attention": 0}
 
 
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["cin.cu", "embedding_bag.cu", "interaction.cu"]
+    assert names == ["cin.cu", "decode_attention.cu", "embedding_bag.cu", "interaction.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         assert "__global__" in text and 'extern "C"' in text

@@ -16,7 +16,9 @@ from repro.kernels import interaction as jax_ix_kernel
 from repro.kernels import ops as jax_ops
 from repro.layers import interactions as jax_ix
 from repro.models import recsys as jax_recsys
+from repro.kernels import ref as jax_ref
 from repro_torch.kernels import cin as cin_kernel
+from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.kernels import ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -188,6 +190,93 @@ def test_cin_tile_constants_match_the_source():
         (cin_kernel.BLOCK_M, cin_kernel.BLOCK_N, cin_kernel.SLICE_K)
 
 
+def _decode_inputs(b, hq, hkv, d, t, seed=15):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d))] + [rng]
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,t", [
+    (2, 8, 2, 64, 256), (4, 4, 4, 32, 128), (1, 16, 8, 128, 512),   # tests/test_kernels.py
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_pallas(b, hq, hkv, d, t, dtype):
+    """The plain K4 against the Pallas kernel in interpret mode and against
+    the JAX reference, with pos drawn from [1, T] and at the edges 0, 1, T.
+    float32 within 1e-4, bfloat16 within 3e-2, as tests/test_kernels.py
+    holds the Pallas kernel (the JAX reference scores in bfloat16, the
+    port in float32)."""
+    q, k, v, rng = _decode_inputs(b, hq, hkv, d, t)
+    jd, td = DTYPES[dtype]
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+    qj, kj, vj = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    qt, kt, vt = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    for pos in (rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t)):
+        pos = pos.astype(np.int32)
+        got = ops.decode_attention(qt, kt, vt, torch.from_numpy(pos))
+        assert got.dtype == td and got.shape == (b, hq, d)
+        pallas = jax_ops.decode_attention(qj, kj, vj, jnp.asarray(pos), use_pallas=True,
+                                          interpret=True)
+        np.testing.assert_allclose(_np32(got), _np32(pallas), **tol)
+        np.testing.assert_allclose(_np32(got), _np32(jax_ref.decode_attention(qj, kj, vj,
+                                                                              jnp.asarray(pos))),
+                                   **tol)
+
+
+def test_decode_attention_edges():
+    """pos = 0 masks every slot: the softmax is uniform and the result is
+    the mean of V over all T (what both JAX versions give).  pos = 1 is slot
+    0's V.  pos >= T reads every slot.  Query head h·G + g reads KV head h."""
+    b, hq, hkv, d, t = 2, 6, 2, 8, 5
+    q, k, v, _ = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                  for x in _decode_inputs(b, hq, hkv, d, t))
+    g = hq // hkv
+    zero = ops.decode_attention(q, k, v, torch.zeros(b, dtype=torch.int32))
+    torch.testing.assert_close(zero, v.mean(dim=1).repeat_interleave(g, dim=1),
+                               rtol=1e-6, atol=1e-6)
+    one = ops.decode_attention(q, k, v, torch.ones(b, dtype=torch.int32))
+    torch.testing.assert_close(one, v[:, 0].repeat_interleave(g, dim=1), rtol=1e-6, atol=1e-6)
+    full = ops.decode_attention(q, k, v, torch.full((b,), t, dtype=torch.int32))
+    assert torch.equal(full, ops.decode_attention(q, k, v, torch.full((b,), 3 * t)))
+    want = torch.softmax(torch.einsum("bhgd,bthd->bhgt", q.reshape(b, hkv, g, d), k) / d ** 0.5,
+                         dim=-1)
+    want = torch.einsum("bhgt,bthd->bhgd", want, v).reshape(b, hq, d)
+    torch.testing.assert_close(full, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,hkv,t,d,es,want", [
+    (128, 2, 32768, 64, 2, 1),       # decode_32k: 256 blocks, ~two for every SM
+    (65, 2, 32768, 64, 2, 3),        # 130 blocks leave 2 SMs idle: three runs a sequence
+    (8, 2, 1024, 64, 2, 4),          # the generate phase: 16 blocks; 8 tiles, 2 a run
+    (1, 2, 32768, 64, 2, 128),       # the latency case: 256 runs of 2 tiles
+    (1, 8, 512, 128, 4, 4),          # narrow tiles (512-byte rows): 8 tiles
+    (3, 1, 100, 8, 4, 1),            # one tile: nothing to split
+])
+def test_decode_attention_split_count(b, hkv, t, d, es, want):
+    """How K4 splits each sequence on a 132-SM card: not at all once every
+    SM has a block, else enough runs for two blocks per SM, never a run of
+    fewer than MIN_TILES_PER_SPLIT tiles."""
+    tile = da_kernel.tile_slots(d, es)
+    got = da_kernel.split_count(b, hkv, t, tile, 132)
+    assert got == want
+    tiles = -(-t // tile)
+    assert got == 1 or tiles // got >= da_kernel.MIN_TILES_PER_SPLIT
+
+
+def test_decode_attention_constants_match_the_source():
+    """The wrapper refuses what the source is not instantiated for, and
+    sizes the split from the source's tile."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    assert sorted(int(x) for x in re.findall(r"case (\d+): return launch_g<T, \d+>", src)) == \
+        list(da_kernel.HEAD_DIMS)
+    assert sorted(int(x) for x in re.findall(r"case (\d+): return launch<T, D, \d+>", src)) == \
+        list(da_kernel.GROUPS)
+    assert re.search(r"TT = ROW <= (\d+) \? (\d+) : (\d+);", src).groups() == tuple(
+        str(x) for x in (da_kernel.WIDE_ROW_BYTES, da_kernel.WIDE_TILE, da_kernel.NARROW_TILE))
+
+
 def test_wrappers_validate_arguments():
     table = torch.zeros((10, 4))
     idx = torch.zeros((3, 2), dtype=torch.int32)
@@ -219,6 +308,20 @@ def test_wrappers_validate_arguments():
         ops.cin_layer(x0, xk, w.bfloat16())
     with pytest.raises(TypeError, match="one dtype"):
         ops.cin_layer(x0.double(), xk.double(), w.double())
+    q, k, pos = torch.zeros((2, 8, 16)), torch.zeros((2, 5, 2, 16)), torch.ones(2, dtype=torch.int32)
+    assert ops.decode_attention(q, k, k, pos).shape == (2, 8, 16)
+    with pytest.raises(ValueError, match="expected q"):
+        ops.decode_attention(q[0], k, k, pos)
+    with pytest.raises(ValueError, match="share B and D"):
+        ops.decode_attention(q[:, :, :8], k, k, pos)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ops.decode_attention(q[:, :7], k, k, pos)
+    with pytest.raises(ValueError, match="T >= 1"):
+        ops.decode_attention(q, k[:, :0], k[:, :0], pos)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.decode_attention(q, k.bfloat16(), k, pos)
+    with pytest.raises(TypeError, match="integer"):
+        ops.decode_attention(q, k, k, pos.float())
 
 
 def test_empty_batch():
@@ -227,3 +330,6 @@ def test_empty_batch():
     assert ops.dot_interaction(torch.zeros((0, 5, 4))).shape == (0, 10)
     assert ops.cin_layer(torch.zeros((0, 3, 4)), torch.zeros((0, 2, 4)),
                          torch.zeros((6, 5))).shape == (0, 5, 4)
+    assert ops.decode_attention(torch.zeros((0, 4, 8)), torch.zeros((0, 3, 2, 8)),
+                                torch.zeros((0, 3, 2, 8)),
+                                torch.zeros(0, dtype=torch.int32)).shape == (0, 4, 8)

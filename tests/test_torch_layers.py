@@ -278,6 +278,137 @@ def test_attention_matches(causal, n_heads, n_kv_heads):
         np.testing.assert_allclose(got2[:, :-1].numpy(), got[:, :-1].numpy(), **TOL)
 
 
+def test_rope_matches_and_rotates_interleaved_pairs():
+    """Pairs (x[2i], x[2i+1]) are rotated and stacked back in place (not
+    the rotate-half layout); angles are float32, the result x's dtype."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(2, 5, 3, 8)).astype(np.float32)
+    pos = rng.integers(0, 50, size=(2, 5)).astype(np.int32)
+    freqs = attention.rope_freqs(8, base=500.0)
+    np.testing.assert_allclose(freqs.numpy(), np.asarray(jax_attn.rope_freqs(8, base=500.0)),
+                               rtol=1e-6, atol=0)
+    for p in (pos, pos[0]):                                   # (B, S) and (S,) positions
+        want = jax_attn.apply_rope(jnp.asarray(x), jnp.asarray(p), jax_attn.rope_freqs(8, base=500.0))
+        got = attention.apply_rope(_t(x), _t(p), freqs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    ang = pos[..., None].astype(np.float32) * freqs.numpy()           # (B, S, D/2)
+    c, s_ = np.cos(ang)[:, :, None], np.sin(ang)[:, :, None]
+    by_hand = np.stack([x[..., 0::2] * c - x[..., 1::2] * s_,
+                        x[..., 0::2] * s_ + x[..., 1::2] * c], axis=-1).reshape(x.shape)
+    np.testing.assert_allclose(attention.apply_rope(_t(x), _t(pos), freqs).numpy(), by_hand,
+                               **TOL)
+    bf = attention.apply_rope(_t(x).bfloat16(), _t(pos), freqs)
+    assert bf.dtype == torch.bfloat16
+
+
+def test_flash_sdpa_equals_dense_causal():
+    """The chunked online-softmax path against the dense masked one, and
+    against the JAX package's flash_sdpa (after tests/test_layers.py)."""
+    rng = np.random.default_rng(22)
+    b, s, hq, hkv, d = 2, 256, 4, 2, 16
+    q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, s, hkv, d)).astype(np.float32) for _ in range(2))
+    dense = attention._sdpa(_t(q), _t(k), _t(v), attention.causal_mask(s, "cpu"))
+    flash = attention.flash_sdpa(_t(q), _t(k), _t(v), causal=True, q_chunk=64, kv_chunk=64)
+    np.testing.assert_allclose(flash.numpy(), dense.numpy(), rtol=1e-4, atol=1e-4)
+    want = jax_attn.flash_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                               q_chunk=64, kv_chunk=128)
+    got = attention.flash_sdpa(_t(q), _t(k), _t(v), causal=True, q_chunk=64, kv_chunk=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_long_causal_attention_takes_the_flash_path(monkeypatch):
+    """Past _FLASH_THRESHOLD score elements a causal self-attention runs
+    chunked; the result is the dense one's."""
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(1, 64, 16)).astype(np.float32)
+    params = _convert(jax_attn.init_attention(KEY, 16, 4, 2, 8))
+    kw = dict(n_heads=4, n_kv_heads=2, head_dim=8, causal=True, freqs=attention.rope_freqs(8))
+    dense = attention.attention(params, _t(x), **kw)
+    calls = []
+    real = attention.flash_sdpa
+    monkeypatch.setattr(attention, "flash_sdpa", lambda *a, **k: calls.append(1) or real(
+        *a, q_chunk=16, kv_chunk=32))
+    monkeypatch.setattr(attention, "_FLASH_THRESHOLD", 32 * 32)
+    flash = attention.attention(params, _t(x), **kw)
+    assert calls == [1]
+    np.testing.assert_allclose(flash.numpy(), dense.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("qkv_bias", [False, True])
+def test_attention_with_rope_and_bias_matches(qkv_bias):
+    rng = np.random.default_rng(24)
+    params = jax_attn.init_attention(KEY, 24, 6, 2, 8, qkv_bias=qkv_bias)
+    if qkv_bias:                    # zero-initialised: draw them, so the bias is exercised
+        params = {k: dict(p, b=jnp.asarray(rng.normal(size=p["b"].shape).astype(np.float32)))
+                  if "b" in p else p for k, p in params.items()}
+    x = rng.normal(size=(2, 7, 24)).astype(np.float32)
+    pos = rng.integers(0, 100, size=(2, 7)).astype(np.int32)
+    kw = dict(n_heads=6, n_kv_heads=2, head_dim=8, causal=True)
+    want = jax.jit(lambda xx, pp: jax_attn.attention(params, xx, positions=pp,
+                                                     freqs=jax_attn.rope_freqs(8), **kw))(
+        jnp.asarray(x), jnp.asarray(pos))
+    got = attention.attention(_convert(params), _t(x), positions=_t(pos),
+                              freqs=attention.rope_freqs(8), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    p_t = attention.init_attention(torch.Generator().manual_seed(0), 24, 6, 2, 8,
+                                   qkv_bias=qkv_bias, device="cpu")
+    assert {k: sorted(v) for k, v in p_t.items()} == {k: sorted(v) for k, v in params.items()}
+
+
+def test_decode_matches_full_attention():
+    """Token-by-token decode (the plain K4 on the CPU, with the cache
+    written in place) equals the full causal forward and the JAX decode
+    (after tests/test_layers.py)."""
+    rng = np.random.default_rng(25)
+    d, hq, hkv, hd, s, b = 32, 4, 2, 8, 6, 2
+    params = jax_attn.init_attention(KEY, d, hq, hkv, hd)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    kw = dict(n_heads=hq, n_kv_heads=hkv, head_dim=hd)
+    freqs = attention.rope_freqs(hd)
+    full = attention.attention(_convert(params), _t(x), causal=True, freqs=freqs, **kw)
+    cache = attention.init_kv_cache(b, s, hkv, hd, device="cpu")
+    cache_j = jax_attn.init_kv_cache(b, s, hkv, hd)
+    jax_step = jax.jit(lambda c, xt: jax_attn.decode_attention(
+        params, xt, c, freqs=jax_attn.rope_freqs(hd), **kw))
+    ops.reset_launch_counts()
+    for t in range(s):
+        o, cache = attention.decode_attention(_convert(params), _t(x[:, t:t + 1]), cache,
+                                              freqs=freqs, **kw)
+        o_j, cache_j = jax_step(cache_j, jnp.asarray(x[:, t:t + 1]))
+        np.testing.assert_allclose(o.numpy(), full[:, t:t + 1].numpy(), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(cache_j["k"]), **TOL)
+    assert cache["pos"].tolist() == [s, s]
+    assert ops.launch_counts()["decode_attention"] == 0
+
+
+def test_kv_write_past_the_cache_is_dropped():
+    """The JAX package's functional write drops an out-of-range slot; the
+    in-place write keeps the old row there, per sequence."""
+    cache = attention.init_kv_cache(2, 3, 1, 4, device="cpu")
+    cache["k"].copy_(torch.arange(24.0).reshape(2, 3, 1, 4))
+    before = cache["k"].clone()
+    cache["pos"] = torch.tensor([1, 3], dtype=torch.int32)
+    new = torch.full((2, 1, 4), -1.0)
+    attention.write_kv(cache, new, new)
+    assert torch.equal(cache["k"][0, 1], new[0]) and torch.equal(cache["v"][0, 1], new[0])
+    assert torch.equal(cache["k"][1], before[1])
+    assert torch.equal(cache["v"][1], torch.zeros((3, 1, 4)))
+
+
+def test_swiglu_matches():
+    rng = np.random.default_rng(26)
+    params = jax_mlp.init_ffn_swiglu(KEY, 12, 20)
+    x = rng.normal(size=(3, 4, 12)).astype(np.float32)
+    want = jax_mlp.ffn_swiglu(params, jnp.asarray(x))
+    np.testing.assert_allclose(mlp_lib.ffn_swiglu(_convert(params), _t(x)).numpy(),
+                               np.asarray(want), **TOL)
+    p_t = mlp_lib.init_ffn_swiglu(torch.Generator().manual_seed(0), 12, 20, device="cpu")
+    assert {k: tuple(v["w"].shape) for k, v in p_t.items()} == \
+        {k: tuple(v["w"].shape) for k, v in params.items()}
+
+
 @pytest.mark.parametrize("mode", ["sum", "mean", "max"])
 def test_embedding_bag_ragged_matches(mode):
     rng = np.random.default_rng(14)

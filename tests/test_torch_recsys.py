@@ -24,7 +24,7 @@ from repro_torch.models import recsys
 MODELS = ["ncf", "wnd", "mt-wnd", "dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3", "din", "dien"]
 ZOO = ["xdeepfm", "autoint", "mind", "bert4rec"]
 TOL = dict(rtol=2e-5, atol=2e-5)
-NO_LAUNCH = {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0}
+NO_LAUNCH = {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0, "decode_attention": 0}
 
 
 def _tensors(batch: dict) -> dict:
