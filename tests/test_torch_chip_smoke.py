@@ -69,3 +69,24 @@ def test_logits_gate(kernel_l2, control_l2, passes):
     else:
         with pytest.raises(SystemExit):
             run()
+
+
+def test_one_pass_tf32_witness_computes_the_cin_layer():
+    """K3's witness is the CIN layer (on the CPU TF32 does not apply, so it
+    is the float32 product): same function, same (B, N, D) layout."""
+    rng = np.random.default_rng(4)
+    x0, xk = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((3, 5, 10), (3, 7, 10)))
+    w = torch.from_numpy(rng.normal(size=(35, 6)).astype(np.float32))
+    torch.testing.assert_close(chip_smoke.one_pass_tf32(x0, xk, w), ref.cin_layer(x0, xk, w),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_cin_float64_bound_is_wider_than_a_float32_sum():
+    """The 3xTF32 bound's factor at K = 7,800: the per-term split error
+    (13·2^-24) plus gamma_4K at u = 2^-23, above the float32 recursive
+    sum's gamma_{K+1} at u = 2^-24."""
+    k = 7800
+    c = chip_smoke.cin_float64_bound(k)
+    u = 2.0 ** -24
+    assert (k + 1) * u / (1 - (k + 1) * u) < c < 4 * k * 2 * u / (1 - 4 * k * 2 * u) + 1e-6

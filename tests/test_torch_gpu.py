@@ -62,17 +62,29 @@ def test_dot_interaction_kernel(dev, b, f, d, dtype):
     torch.testing.assert_close(full.float(), ref.gram(feats).float(), **_tol(dtype))
 
 
-@pytest.mark.parametrize("b,f,h,hn,d", [
-    (8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130),   # tests/test_kernels.py
-    (4, 6, 16, 8, 10), (1, 39, 39, 200, 10), (65, 39, 200, 200, 10), (3, 1, 1, 1, 1),
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cin_layer_kernel(dev, b, f, h, hn, d, dtype):
-    """float32 within 1e-4 (the CPU sweep's tolerance), bfloat16 2e-2."""
-    rng = np.random.default_rng(2)
+def _cin_inputs(dev, b, f, h, hn, d, dtype, seed=2):
+    rng = np.random.default_rng(seed)
     x0 = torch.from_numpy((rng.normal(size=(b, f, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
     xk = torch.from_numpy((rng.normal(size=(b, h, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.normal(size=(h * f, hn)) / (h * f) ** 0.5).astype(np.float32)).to(dev, dtype)
+    return x0, xk, w
+
+
+@pytest.mark.parametrize("b,f,h,hn,d", [
+    (8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130),   # tests/test_kernels.py
+    (4, 6, 16, 8, 10), (1, 39, 39, 200, 10), (65, 39, 200, 200, 10), (3, 1, 1, 1, 1),
+    (1, 39, 200, 200, 10), (64, 39, 200, 200, 10), (512, 39, 200, 200, 10),   # xDeepFM
+    (2, 5, 7, 300, 3), (3, 4, 5, 73, 2),   # column tiles: 2 x 200 (the last 100), 128
+    (9, 2, 3, 16, 1), (5, 4, 4, 7, 1),                            # D = 1; K below a stage
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cin_layer_kernel(dev, b, f, h, hn, d, dtype):
+    """float32 within 1e-4 (the CPU sweep's tolerance), bfloat16 2e-2.
+    Covers M = B·D not a multiple of the 128-row tile, K = H·F not a
+    multiple of the 32-value stage, N below 200 and not a multiple of 8,
+    N over several ragged column tiles, B = 1 with K split, D = 1 and
+    D = 130."""
+    x0, xk, w = _cin_inputs(dev, b, f, h, hn, d, dtype)
     before = ops.launch_counts()["cin_layer"]
     got = ops.cin_layer(x0, xk, w)
     torch.cuda.synchronize()
@@ -80,6 +92,75 @@ def test_cin_layer_kernel(dev, b, f, h, hn, d, dtype):
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     assert got.dtype == dtype and got.shape == (b, hn, d)
     torch.testing.assert_close(got.float(), ref.cin_layer(x0, xk, w).float(), **tol)
+
+
+@pytest.mark.parametrize("b", [1, 512])
+def test_cin_layer_kernel_same_bits_every_launch(dev, b):
+    """No atomics and a fixed order of every sum: B = 1 (K split over
+    blocks) and B = 512 give the same bits on a second launch."""
+    from repro_torch.kernels import cin
+    x0, xk, w = _cin_inputs(dev, b, 39, 200, 200, 10, torch.float32)
+    if b == 1:
+        assert cin.plan(b, 39, 200, 200, 10, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
+    first = ops.cin_layer(x0, xk, w)
+    again = ops.cin_layer(x0, xk, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_cin_layer_kernel_rows_agree_across_batch_sizes(dev):
+    """512 rows alone (a request, K split three ways) and the same rows
+    inside 2,048 (a bulk chunk, not split) differ only by float32 rounding:
+    each 16-value stage is summed into a float32 total, so the order of the
+    runs moves the result by a few ulps."""
+    x0, xk, w = _cin_inputs(dev, 2048, 39, 200, 200, 10, torch.float32)
+    whole = ops.cin_layer(x0, xk, w)
+    head = ops.cin_layer(x0[:512].contiguous(), xk[:512].contiguous(), w)
+    torch.testing.assert_close(whole[:512], head, rtol=1e-6, atol=1e-6)
+
+
+def test_cin_layer_kernel_float64(dev):
+    """At xDeepFM's K = 7,800 the 3xTF32 result is within 1e-5 of the
+    largest output of the float64 value (a float32 sum's distance; one TF32
+    pass is ~1e-3 of it)."""
+    x0, xk, w = _cin_inputs(dev, 64, 39, 200, 200, 10, torch.float32)
+    exact = ref.cin_layer(x0.double(), xk.double(), w.double())
+    err = float((ops.cin_layer(x0, xk, w).double() - exact).abs().max())
+    assert err <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("k,n", [(7800, 200), (30, 7), (5, 300)])
+def test_cin_split_w_planes(dev, k, n):
+    """The pre-pass: hi holds w rounded to TF32 (13 low bits zero), hi + lo
+    is w within 2^-22 of its magnitude, zero past K and N, in wgmma's
+    core-matrix order [k/4][n/8][n%8][k%4] within each (tile, stage)."""
+    from repro_torch.kernels import cin
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev)
+    before = ops.launch_counts()["cin_layer"]
+    planes = cin.split_w(w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cin_layer"] == before
+    ct, st, _, bk, nt = planes.shape
+    assert (nt, bk) == (cin.n_tile(n), cin.SLICE_K)
+    assert int((planes[:, :, 0].contiguous().view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    # (c, s, plane, kc, g, row, kk) -> (plane, s, kc, kk, c, g, row) -> (plane, K', N')
+    full = planes.reshape(ct, st, 2, bk // 4, nt // 8, 8, 4).permute(2, 1, 3, 6, 0, 4, 5)
+    hi, lo = full.reshape(2, st * bk, ct * nt)
+    assert not hi[k:].any() and not hi[:, n:].any() and not lo[k:].any()
+    assert float((hi[:k, :n] + lo[:k, :n] - w).abs().max()) <= 2.0 ** -22 * float(w.abs().max())
+
+
+def test_cin_layer_kernel_splits_a_large_h_to_fit(dev):
+    """H = 600 rows of xk (K = 24,000) do not fit a block's shared memory
+    whole: the plan splits K although the 125 row tiles fill the card."""
+    from repro_torch.kernels import cin
+    b, f, h, hn, d = 1600, 40, 600, 8, 10
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cin.plan(b, f, h, hn, d, sms)[0] > cin.split_count(b * d, hn, h * f, sms)
+    x0, xk, w = _cin_inputs(dev, b, f, h, hn, d, torch.float32)
+    torch.testing.assert_close(ops.cin_layer(x0, xk, w), ref.cin_layer(x0, xk, w),
+                               rtol=1e-4, atol=1e-4)
 
 
 def _decode_inputs(dev, b, hq, hkv, d, t, dtype, seed=3):

@@ -165,29 +165,107 @@ def test_cin_layer_bfloat16_accumulates_in_float32():
 
 
 @pytest.mark.parametrize("b,k,want", [
-    (512, 7800, 1), (1024, 1521, 1),        # 320+ output tiles: every SM has two already
-    (256, 7800, 2), (64, 7800, 7), (1, 7800, 66), (1, 1521, 24),
-    (1, 48, 1),                             # 3 slices: too few to split
+    (16384, 7800, 1), (1536, 1521, 1),      # 120+ row tiles: 90 % of a wave already
+    (512, 7800, 3), (1024, 1521, 2), (256, 7800, 6), (64, 7800, 24),
+    (1, 7800, 119), (1, 1521, 96),          # 96: a run a stage
+    (1, 48, 3), (1, 10, 1),                 # never more runs than stages
 ])
 def test_cin_split_count(b, k, want):
     """How K3 splits the reduction on a 132-SM card, at xDeepFM's D = 10,
-    Hn = 200: enough runs for two blocks per SM, never a run of fewer than
-    MIN_SLICES_PER_SPLIT slices of K."""
+    Hn = 200 (one 200-column tile): enough runs for the 128-row tiles to
+    fill 90 % of one wave, never more runs than stages of K."""
     got = cin_kernel.split_count(b * 10, 200, k, 132)
     assert got == want
-    slices = -(-k // cin_kernel.SLICE_K)
-    assert got == 1 or slices // got >= cin_kernel.MIN_SLICES_PER_SPLIT
+    assert 1 <= got <= -(-k // cin_kernel.SLICE_K)
+
+
+@pytest.mark.parametrize("n,want", [(1, 8), (7, 8), (16, 16), (17, 32), (65, 128), (129, 200),
+                                    (200, 200), (201, 128), (300, 200)])
+def test_cin_n_tile(n, want):
+    """ceil(N / 200) column tiles, each the smallest of N_TILES that holds
+    its share."""
+    assert cin_kernel.n_tile(n) == want
+
+
+@pytest.mark.parametrize("b,f,h,n,want", [
+    (512, 39, 200, 200, 3),                 # xDeepFM: the fill split, 68 xk rows a run fit
+    (16384, 39, 200, 200, 1),               # bulk chunk: all 200 rows of xk fit whole
+    (1600, 40, 600, 8, 2),                  # 600 rows do not: split though the card is full
+])
+def test_cin_plan_fits_shared_memory(b, f, h, n, want):
+    splits, nt = cin_kernel.plan(b, f, h, n, 10, 132)
+    assert splits == want
+    assert cin_kernel.shared_bytes(cin_kernel.xk_rows(h * f, f, splits), f, nt) \
+        <= cin_kernel.SMEM_LIMIT
+
+
+def test_cin_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        cin_kernel.plan(4, 500, 2, 8, 10, 132)
 
 
 def test_cin_tile_constants_match_the_source():
-    """split_count sizes the workspace from the kernel's tile: the Python
-    constants must be csrc/cin.cu's."""
+    """The plan sizes the workspace and the shared memory from the
+    kernel's tile: the Python constants must be csrc/cin.cu's."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "cin.cu").read_text()
-    tile = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    assert (tile["BM"], tile["BN"], tile["BK"]) == \
-        (cin_kernel.BLOCK_M, cin_kernel.BLOCK_N, cin_kernel.SLICE_K)
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert int(consts["BM"]) == cin_kernel.BLOCK_M and int(consts["BK"]) == cin_kernel.SLICE_K
+    assert consts["XS"] == "BM + 8" and cin_kernel.X_STRIDE == cin_kernel.BLOCK_M + 8
+    assert consts["ES"] == "BM + 4" and cin_kernel.E_STRIDE == cin_kernel.BLOCK_M + 4
+    assert (int(consts["MIN_STAGES"]), int(consts["BARRIER_BYTES"]), int(consts["SMEM_LIMIT"])) \
+        == (cin_kernel.MIN_STAGES, cin_kernel.BARRIER_BYTES, cin_kernel.SMEM_LIMIT)
+    tiles = re.search(r"constexpr int N_TILES\[\] = \{([^}]*)\};", src).group(1)
+    assert tuple(int(t) for t in tiles.split(",")) == cin_kernel.N_TILES
+    for nt in cin_kernel.N_TILES:                     # each tile has its wgmma and its case
+        assert f"m64n{nt}k8.f32.tf32.tf32" in src and f"case {nt}: return launch<T, {nt}>" in src
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 → the nearest TF32 value (10 mantissa bits) on float32 bits:
+    round to nearest, ties to even, at the 13 low bits."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & ~np.uint64(0x1FFF)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def test_tf32_emulation_rounds_to_ten_mantissa_bits():
+    x = np.array([1 + 2.0 ** -10, 1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, 1 + 2.0 ** -12,
+                  -(1 + 2.0 ** -11 + 2.0 ** -20)], dtype=np.float32)
+    want = np.array([1 + 2.0 ** -10, 1, 1 + 2.0 ** -9, 1, -(1 + 2.0 ** -10)], dtype=np.float32)
+    np.testing.assert_array_equal(_tf32(x), want)
+    hi, lo = _split(np.float32(np.pi)[None])
+    assert abs(float(hi[0]) + float(lo[0]) - np.pi) < 2.0 ** -21 * np.pi
+
+
+def test_cin_three_tf32_passes_meet_the_float32_tolerance():
+    """K3's arithmetic on the CPU, at xDeepFM's K = 7,800 (F = 39, H = 200,
+    N = 200, D = 10) and B = 4: every product and w split into TF32 hi + lo,
+    hi·lo + lo·hi + hi·hi summed in float32, against the float64 value.
+    Within CIN_TOL[float32] = 1e-4 (rtol = atol, as chip_smoke.py holds the
+    card); one TF32 pass (hi·hi) is at least 10× further off."""
+    rng = np.random.default_rng(21)
+    b, f, h, n, d = 4, 39, 200, 200, 10
+    x0 = (rng.normal(size=(b, f, d)) / d ** 0.5).astype(np.float32)
+    xk = (rng.normal(size=(b, h, d)) / d ** 0.5).astype(np.float32)
+    w = (rng.normal(size=(h * f, n)) / (h * f) ** 0.5).astype(np.float32)
+    a = np.einsum("bhd,bfd->bdhf", xk, x0).reshape(b * d, h * f)     # float32 products
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    a_hi, a_lo = _split(a)
+    w_hi, w_lo = _split(w)
+    three = (a_hi @ w_lo + a_lo @ w_hi) + a_hi @ w_hi                # float32 matmuls
+    one = a_hi @ w_hi
+    err3 = np.abs(three - exact)
+    err1 = np.abs(one - exact)
+    assert three.dtype == np.float32
+    assert (err3 <= 1e-4 * (1 + np.abs(exact))).all()
+    assert err1.max() >= 10 * err3.max()
 
 
 def _decode_inputs(b, hq, hkv, d, t, seed=15):
