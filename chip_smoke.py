@@ -12,9 +12,9 @@ What it does, one JSON line per phase:
                  interaction, K3 CIN layer, K4 flash-decode attention)
                  against its plain PyTorch version on the card: the shape x
                  dtype sweep of the CPU tests plus the shapes the models
-                 give it, and timings at the DLRM-RMC2, xDeepFM and
-                 qwen2-0.5b shapes (kernel, bound, plain version, library
-                 call)
+                 give it, and timings at the DLRM-RMC2 (and for K2 also
+                 RMC1/RMC3), xDeepFM and qwen2-0.5b shapes (kernel,
+                 bound, plain version, library call)
   parity         forward of every recsys smoke config (paper models and
                  zoo), and prefill + 4 decode steps of every dense LM smoke
                  config, on the card (kernels) against the same weights and
@@ -56,6 +56,12 @@ What it does, one JSON line per phase:
 then the card line and, last, {"ok": true, "device": {...}}.  Any failed
 phase raises: the script exits non-zero and prints no result.  It also
 exits non-zero when no CUDA device is present.
+
+    python3 chip_smoke.py --k2-timings   # K2's timing line alone, then stop
+
+times only K2 at the DLRM shapes and prints no result line; a copy of this
+script run from another tree's root times that tree's K2 the same way (how
+a change is held against its parent on one card).
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ from repro_torch.core.query_gen import PRODUCTION, query_stream  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
+from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
 from repro_torch.models import lm, recsys  # noqa: E402
@@ -322,9 +329,16 @@ def time_embedding_bag(rng, dev, tables: torch.Tensor, batch: int, ids: str,
     return res
 
 
-def time_dot_interaction(gen, dev, batch: int) -> dict:
-    f = recsys._num_feature_rows(PAPER_MODELS[SERVE_ARCH])
-    d = PAPER_MODELS[SERVE_ARCH].embed_dim
+def time_dot_interaction(gen, dev, batch: int, arch: str = SERVE_ARCH,
+                         other_store: bool = True) -> dict:
+    """K2 at one DLRM model's shape (F = 41 for RMC2, 11 for RMC1 and RMC3;
+    D = 32, float32).  Eight input sets rotate.  The bound reads the input
+    once and writes the packed output once; its operations are 2·D a pair.
+    ``other_store`` also times the launch with the plan's store flipped
+    (staged in shared memory or straight out), the evidence for the plan's
+    choice."""
+    f = recsys._num_feature_rows(PAPER_MODELS[arch])
+    d = PAPER_MODELS[arch].embed_dim
     sets = [torch.randn((batch, f, d), generator=gen, device=dev) / d ** 0.5 for _ in range(8)]
     pairs = torch.from_numpy(ref.tril_pairs(f)).to(dev)
     n_out = f * (f - 1) // 2
@@ -335,8 +349,8 @@ def time_dot_interaction(gen, dev, batch: int) -> dict:
         x = sets[i % 8]
         return torch.bmm(x, x.transpose(1, 2)).reshape(batch, f * f)[:, pairs]
 
-    return {
-        "batch": batch,
+    res = {
+        "arch": arch, "batch": batch, "shape": [batch, f, d],
         "kernel_ms": device_ms(lambda i: ops.dot_interaction(sets[i % 8])),
         "kernel_call_ms": call_ms(lambda i: ops.dot_interaction(sets[i % 8])),
         "plain_ms": device_ms(lambda i: ref.dot_interaction_packed(sets[i % 8])),
@@ -345,6 +359,23 @@ def time_dot_interaction(gen, dev, batch: int) -> dict:
         "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
         else "operations",
     }
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    if other_store:
+        p = ix_kernel.plan(batch, f, d, 4, True, ix_kernel.sm_count(dev.index or 0))
+        slab = ix_kernel.slab_bytes(f, d, 4, p.samples)
+        flip = (p._replace(stage_at=-1, smem=slab) if p.stage_at >= 0 else
+                p._replace(stage_at=-(-slab // 16) * 16,
+                           smem=ix_kernel.staged_bytes(f, d, 4, p.samples, n_out)))
+        outs = [torch.empty((batch, n_out), device=dev) for _ in range(8)]
+        res["plan"] = p._asdict()
+        res["other_store_ms"] = device_ms(
+            lambda i: ix_kernel.launch(sets[i % 8], outs[i % 8], flip, packed=True))
+    return res
+
+
+def time_dot_interactions(gen, dev, other_store: bool = True) -> list[dict]:
+    return [time_dot_interaction(gen, dev, b, arch, other_store)
+            for arch in (SERVE_ARCH, "dlrm-rmc1") for b in MAIN_BATCHES]
 
 
 def cin_inputs(gen, dev, b: int, f: int, h: int, hn: int, d: int,
@@ -1196,6 +1227,10 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--qps", type=float, default=100.0, help="offered load of the serve phases")
     ap.add_argument("--seconds", type=float, default=4.0, help="length of each serve phase")
+    ap.add_argument("--k2-timings", action="store_true",
+                    help="only time K2 at the DLRM shapes, print that line and stop (no "
+                         "result line): to time another tree's K2, run a copy of this "
+                         "script from that tree's root")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1213,6 +1248,10 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.k2_timings:
+        emit({"phase": "k2_timings", "card": card,
+              "timings": time_dot_interactions(gen, dev, other_store=False)})
+        return
     cfg = PAPER_MODELS[SERVE_ARCH]
     params = recsys.init(gen, cfg, device=dev)           # 40 x 10^6 x 32 float32 on the card
     tables = params["tables"]
@@ -1222,7 +1261,7 @@ def main() -> None:
     cin_checks, cin_err = check_cin_layer(gen, dev)
     eb_times = [time_embedding_bag(rng, dev, tables, b, ids)
                 for ids in ("zipf", "uniform") for b in MAIN_BATCHES]
-    ix_times = [time_dot_interaction(gen, dev, b) for b in MAIN_BATCHES]
+    ix_times = time_dot_interactions(gen, dev)
     xdfm = configs.get("xdeepfm").config
     xdfm_tables = torch.randn((xdfm.n_tables, xdfm.vocab, xdfm.embed_dim), generator=gen,
                               device=dev)
@@ -1243,7 +1282,7 @@ def main() -> None:
     emit({"phase": "kernel_checks", "card": card,
           "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times,
                             "timings_xdeepfm": eb_times_xdfm},
-          "dot_interaction": {"checks": ix_checks, "timings_rmc2": ix_times},
+          "dot_interaction": {"checks": ix_checks, "timings_rmc2_rmc1": ix_times},
           "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times},
           "decode_attention": {"checks": da_checks, "timings_qwen2": da_times}})
 
@@ -1281,7 +1320,9 @@ def main() -> None:
              generated["launches"], decoded["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
-    ix_main = next(t for t in ix_times if t["batch"] == MAIN_BATCHES[-1])
+    ix_main = next(t for t in ix_times
+                   if t["arch"] == SERVE_ARCH and t["batch"] == MAIN_BATCHES[-1])
+    gen_k4 = da_times[-1]                                # lm_generate's shape
     k_max = max(h * f for f, h, _ in xdeepfm_cin_shapes())
     cin_main = next(t for t in cin_times
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
@@ -1302,7 +1343,11 @@ def main() -> None:
          "launches": total["dot_interaction"], "max_abs_err": ix_err,
          "ms": ix_main["kernel_ms"], "call_ms": ix_main["kernel_call_ms"], "plain_ms": ix_main["plain_ms"],
          "bound_ms": ix_main["bound_ms"], "bound_by": ix_main["bound_by"],
-         "library_ms": ix_main["library_ms"],
+         "library_ms": ix_main["library_ms"], "share_of_bound": ix_main["share_of_bound"],
+         "design": "S consecutive samples a block (plan), slab in by 16-byte cp.async, "
+                   "4x4 float32 register tiles with 16-byte shared reads of rows laid out "
+                   "by tile row; at small B lanes split d and halve their sums by shuffles, "
+                   "on a full card results are staged and stored as one 16-byte range",
          "shape": "feats (1024, 41, 32) float32"},
         {"name": "cin_layer", "route": "cuda",
          "source": "src/repro_torch/csrc/cin.cu",
@@ -1312,8 +1357,8 @@ def main() -> None:
          "plain_ms": cin_main["plain_ms"],
          "bound_ms": cin_main["bound_ms"], "bound_by": cin_main["bound_by"],
          "library_ms": cin_main["library_ms"],
-         "design": "3xTF32 wgmma on the tensor cores: A formed in registers, w split into "
-                   "TF32 hi/lo planes in shared memory by converter warps (no pre-pass)",
+         "design": "3xTF32 wgmma on the tensor cores: A formed in registers, w's TF32 hi/lo "
+                   "planes written by a pre-pass and brought in by cp.async.bulk",
          "bound_of": cin_main["bound_of"],
          "fp32_cuda_core_bound_ms": cin_main["fp32_cuda_core_bound_ms"],
          "share_of_bound": cin_main["share_of_bound"],
@@ -1329,7 +1374,16 @@ def main() -> None:
          "library_ms": da_main["library_ms"],
          "shape": f"decode_32k: q ({t32k.global_batch}, {qwen.n_heads}, {qwen.hd}), "
                   f"k/v ({t32k.global_batch}, {t32k.seq_len}, {qwen.n_kv_heads}, {qwen.hd}) "
-                  f"bfloat16, pos = T"},
+                  f"bfloat16, pos = T",
+         "lm_generate": {
+             "launches": generated["launches"]["decode_attention"],
+             "ms": gen_k4["kernel_ms"], "call_ms": gen_k4["kernel_call_ms"],
+             "plain_ms": gen_k4["plain_ms"], "bound_ms": gen_k4["bound_ms"],
+             "bound_by": gen_k4["bound_by"], "library_ms": gen_k4["library_ms"],
+             "share_of_bound": gen_k4["bound_ms"] / gen_k4["kernel_ms"],
+             "shape": f"q ({GEN_BATCH}, {qwen.n_heads}, {qwen.hd}), k/v ({GEN_BATCH}, "
+                      f"{GEN_CACHE}, {qwen.n_kv_heads}, {qwen.hd}) bfloat16, "
+                      f"pos = {gen_k4['pos']}"}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -97,13 +97,11 @@ def _interaction(feats: torch.Tensor, *, packed: bool) -> torch.Tensor:
         return ref.dot_interaction_packed(feats) if packed else ref.gram(feats)
     _require_contiguous("feats", feats)
     b, f, d = feats.shape
-    if _ix.slab_bytes(f, d) > _ix.MAX_SLAB_BYTES:
-        raise ValueError(f"a sample of F={f}, D={d} needs {_ix.slab_bytes(f, d)} bytes of "
-                         f"shared memory; a block has {_ix.MAX_SLAB_BYTES}")
+    plan = _ix.plan(b, f, d, feats.element_size(), packed, _ix.sm_count(feats.device.index))
     n_out = f * (f - 1) // 2 if packed else f * f
     out = torch.empty((b, n_out), dtype=feats.dtype, device=feats.device)
     if out.numel():
-        _ix.launch(feats, out, packed=packed)
+        _ix.launch(feats, out, plan, packed=packed)
     return out
 
 

@@ -51,15 +51,39 @@ def test_embedding_bag_kernel(dev, f, v, b, h, d, dtype, mode):
 
 
 @pytest.mark.parametrize("b,f,d", [(32, 8, 32), (64, 27, 16), (8, 4, 64), (10, 5, 130),
-                                   (1, 41, 32), (1024, 41, 32), (7, 2, 1), (3, 300, 64)])
+                                   (1, 41, 32), (1024, 41, 32), (7, 2, 1), (3, 300, 64),
+                                   (1000, 41, 32), (1024, 11, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dot_interaction_kernel(dev, b, f, d, dtype):
+    """(1000, 41, 32): B not a multiple of a block's samples at F = 41;
+    (1024, 11, 32): seven samples a block.  A second launch gives the same
+    bits."""
     rng = np.random.default_rng(1)
     feats = torch.from_numpy((rng.normal(size=(b, f, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
     got, full = ops.dot_interaction(feats), ops.gram(feats)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.dot_interaction_packed(feats).float(), **_tol(dtype))
     torch.testing.assert_close(full.float(), ref.gram(feats).float(), **_tol(dtype))
+    assert torch.equal(ops.dot_interaction(feats), got) and torch.equal(ops.gram(feats), full)
+
+
+@pytest.mark.parametrize("b,f,d,offset", [(9, 5, 3, 15), (64, 11, 32, 1), (5, 41, 32, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interaction_kernel_unaligned_start(dev, b, f, d, offset, dtype):
+    """A contiguous input whose first element lies ``offset`` elements into
+    its storage, off a 16-byte boundary (x[1:] of (10, 5, 3) starts 60
+    bytes in): the kernel checks the address, not only the shape, and takes
+    its scalar path."""
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy((rng.normal(size=offset + b * f * d) / d ** 0.5)
+                            .astype(np.float32)).to(dev, dtype)
+    feats = flat[offset:].view(b, f, d)
+    assert feats.is_contiguous() and feats.data_ptr() % 16
+    got, full = ops.dot_interaction(feats), ops.gram(feats)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.dot_interaction_packed(feats).float(), **_tol(dtype))
+    torch.testing.assert_close(full.float(), ref.gram(feats).float(), **_tol(dtype))
+    assert torch.equal(ops.dot_interaction(feats), got)
 
 
 def _cin_inputs(dev, b, f, h, hn, d, dtype, seed=2):

@@ -19,6 +19,7 @@ from repro.models import recsys as jax_recsys
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import cin as cin_kernel
 from repro_torch.kernels import decode_attention as da_kernel
+from repro_torch.kernels import interaction as ix_kernel
 from repro_torch.kernels import ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -127,7 +128,92 @@ def test_pair_order_matches_layer(fields):
     li, lj = np.tril_indices(fields, k=-1)
     np.testing.assert_array_equal(ref.tril_pairs(fields), li * fields + lj)
     p = np.arange(len(li))
-    np.testing.assert_array_equal(li * (li - 1) // 2 + lj, p)   # the kernel's inversion
+    np.testing.assert_array_equal(li * (li - 1) // 2 + lj, p)   # the kernel's forward offset
+
+
+@pytest.mark.parametrize("b,f,d,samples,splits,grid,staged", [
+    (1024, 41, 32, 1, 1, 1024, True),     # DLRM-RMC2: a sample a block, a lane a tile, staged
+    (1024, 11, 32, 2, 4, 512, False),     # RMC1/RMC3: two samples a block, lanes split d
+    (1, 41, 32, 1, 4, 1, False),          # one request of one row: lanes split d
+    (3, 300, 64, 1, 1, 3, False),         # the slab alone fits: results written straight out
+])
+def test_interaction_plan(b, f, d, samples, splits, grid, staged):
+    """K2's plan on a 132-SM card, float32, packed: samples a block, lanes
+    a tile, blocks, threads, and a layout that fits a block's shared memory."""
+    p = ix_kernel.plan(b, f, d, 4, True, 132)
+    assert (p.samples, p.splits, p.grid, p.stage_at >= 0) == (samples, splits, grid, staged)
+    assert p.grid * p.samples >= b > (p.grid - 1) * p.samples
+    rb = -(-f // ix_kernel.TILE)
+    work = p.samples * rb * (rb + 1) // 2 * p.splits        # (sample, tile, lane) items
+    if p.splits > 1:                                        # and a thread a 16-byte chunk
+        work = max(work, p.samples * f * -(-d // 4))
+    assert p.threads == -(-min(work, ix_kernel.MAX_THREADS) // 32) * 32
+    slab = ix_kernel.slab_bytes(f, d, 4, p.samples)
+    assert slab == p.samples * rb * ix_kernel.TILE * p.ld * 4
+    assert p.ld * 4 % 16 == 0 and (p.ld * 4 // 16) % 2 == 1 and p.ld >= d
+    if staged:
+        assert p.stage_at % 16 == 0 and p.stage_at >= slab
+        assert p.smem == p.stage_at + 16 + p.samples * f * (f - 1) // 2 * 4
+    else:
+        assert p.smem == slab
+    assert p.smem <= ix_kernel.MAX_SLAB_BYTES
+
+
+@pytest.mark.parametrize("f", [11, 41])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_interaction_plan_covers_the_card(f, packed, itemsize):
+    """At B = 1024 the grid keeps a block for each of the 132 SMs."""
+    p = ix_kernel.plan(1024, f, 32, itemsize, packed, 132)
+    assert p.grid >= 132 and p.smem <= ix_kernel.MAX_SLAB_BYTES
+
+
+def test_interaction_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ix_kernel.plan(1, 2000, 64, 4, True, 132)
+
+
+def test_interaction_constants_match_the_source():
+    """The plan sizes the launch for the kernel's tile, its instantiations
+    and its launch bound: the Python constants must be csrc/interaction.cu's."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "interaction.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["TILE"]) == ix_kernel.TILE
+    assert int(consts["MAX_THREADS"]) == ix_kernel.MAX_THREADS
+    assert "__launch_bounds__(MAX_THREADS)" in src
+    ks = [int(k) for k, t in re.findall(r"case (\d+): return launch<T, (\d+)>", src) if k == t]
+    assert ks == [1, 2, 4, 8] and ks[-1] == ix_kernel.MAX_SPLITS
+
+
+def test_interaction_divisor_matches_integer_division():
+    """The kernel divides by the copy width, F and the tile count with a
+    float estimate from the host's reciprocal and one correction; in
+    float32 arithmetic it must equal integer division over the indices a
+    block can hold (below 2^24)."""
+    rng = np.random.default_rng(15)
+    for d in [1, 2, 3, 7, 8, 11, 33, 41, 66, 132, 2850] + list(rng.integers(2, 7_000_000, 40)):
+        inv = np.float32(ix_kernel.reciprocal(int(d)))
+        a = np.concatenate([rng.integers(0, 1 << 24, 20_000),
+                            np.arange(0, 1 << 24, int(d))[:5_000], np.arange(1, 1 << 24, int(d))[:5_000] - 2])
+        a = a[a >= 0]
+        q = np.trunc(a.astype(np.float32) * inv).astype(np.int64)
+        r = a - q * d
+        q = q + (r >= d) - (r < 0)
+        np.testing.assert_array_equal(q, a // d)
+
+
+def test_interaction_copy_path_checks_the_address():
+    """16-byte copies only when a row is whole 16-byte chunks and the input
+    starts on a 16-byte boundary: x[1:] of a (10, 41, 32) float32 tensor
+    starts 5,248 bytes in (aligned); a storage offset of one element is not."""
+    assert ix_kernel.copy_path(32, 4, 4096) == (True, 8)
+    assert ix_kernel.copy_path(32, 4, 4096 + 41 * 32 * 4) == (True, 8)
+    assert ix_kernel.copy_path(32, 4, 4100) == (False, 32)
+    assert ix_kernel.copy_path(32, 2, 4098) == (False, 32)
+    assert ix_kernel.copy_path(3, 4, 4096) == (False, 4)     # D = 3: a chunk, zero-padded
+    assert ix_kernel.copy_path(130, 4, 4096) == (False, 132)
 
 
 @pytest.mark.parametrize("batch,f,h,hn,dim", [
