@@ -62,6 +62,13 @@ exits non-zero when no CUDA device is present.
 times only K2 at the DLRM shapes and prints no result line; a copy of this
 script run from another tree's root times that tree's K2 the same way (how
 a change is held against its parent on one card).
+
+    python3 chip_smoke.py --k4-timings   # K4's timing line alone, then stop
+
+does the same for K4 at its four shapes (decode_32k at pos = T and with pos
+uniform, B = 1 at 32,768 slots, lm_generate's step), with main kernel and
+combine timed apart by torch.profiler and other run lengths than the plan's
+timed beside it.
 """
 from __future__ import annotations
 
@@ -86,6 +93,7 @@ from repro_torch.core.query_gen import PRODUCTION, query_stream  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
+from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
 from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
@@ -554,9 +562,52 @@ def decode_inputs(gen, dev, b: int, hq: int, hkv: int, d: int, t: int,
 
 
 def decode_positions(rng, b: int, t: int, kind, dev) -> torch.Tensor:
-    """pos (B,) int32 on the card: 'uniform' in [1, T], or one value for all."""
-    pos = rng.integers(1, t + 1, size=b) if kind == "uniform" else np.full(b, kind)
-    return torch.from_numpy(pos.astype(np.int32)).to(dev)
+    """pos (B,) int32 on the card: 'uniform' in [1, T], 'runs' one slot
+    either side of and on K4's run boundaries (sequence i at
+    (i // 3 + 1)·run_slots + i % 3 - 1, within [1, T]), or one value for all."""
+    if kind == "uniform":
+        pos = rng.integers(1, t + 1, size=b)
+    elif kind == "runs":
+        run = k4_run_slots(b, t, *k4_heads())
+        pos = np.clip([(i // 3 + 1) * run + i % 3 - 1 for i in range(b)], 1, t)
+    else:
+        pos = np.full(b, kind)
+    return torch.from_numpy(np.asarray(pos).astype(np.int32)).to(dev)
+
+
+def k4_heads() -> tuple[int, int, int]:
+    """(Hq, Hkv, D) of the main path's K4: qwen2-0.5b's heads."""
+    cfg = configs.get(LM_ARCH).config
+    return cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+
+def k4_run_slots(b: int, t: int, hq: int, hkv: int, d: int, element_size: int = 2) -> int | None:
+    """K4's run length on this card at a shape (None for a tree whose K4
+    has no plan: the copy of this script timing a parent's kernel)."""
+    if not hasattr(da_kernel, "plan"):
+        return None
+    return da_kernel.plan(b, hkv, t, d, element_size,
+                          torch.cuda.get_device_properties(0).multi_processor_count).run_slots
+
+
+def same_bits(name: str, q, k, v, pos) -> None:
+    """K4 gives the same bits on a second eager call and on a CUDA graph's
+    replay (no atomics, and the combine's order is fixed)."""
+    first = ops.decode_attention(q, k, v, pos)
+    if not torch.equal(ops.decode_attention(q, k, v, pos), first):
+        fail(f"{name}: a second launch gave other bits")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, pos)               # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.decode_attention(q, k, v, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, first):
+        fail(f"{name}: a CUDA graph's replay gave other bits")
 
 
 def decode_compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -573,8 +624,11 @@ def check_decode_attention(rng, gen, dev) -> tuple[list, float]:
     """K4 against ref.decode_attention (``decode_compare``: float32 1e-4,
     bfloat16 3e-2), each shape at pos uniform in [1, T] and at 0, 1 and T;
     the main path's long caches (decode_32k, and B = 1, split into runs)
-    in float32.  Returns the checks and the largest error at qwen2-0.5b's
-    heads (G = 7, D = 64) in bfloat16, the main path's."""
+    in float32; at qwen2-0.5b's heads also pos on and one slot either side
+    of the run boundaries, and the same bits on a second launch and on a
+    CUDA graph's replay where the slots are split into runs.  Returns the
+    checks and the largest error at qwen2-0.5b's heads (G = 7, D = 64) in
+    bfloat16, the main path's."""
     checks, main_err = [], 0.0
     qwen = configs.get(LM_ARCH).config
     t32k = configs.LM_SHAPES["decode_32k"]
@@ -594,7 +648,8 @@ def check_decode_attention(rng, gen, dev) -> tuple[list, float]:
     for (name, b, hq, hkv, d, t), kinds in dtypes.items():
         for dtype in kinds:
             q, k, v = decode_inputs(gen, dev, b, hq, hkv, d, t, dtype)
-            for kind in ("uniform", 0, 1, t):
+            positions = ("uniform", 0, 1, t) + (("runs",) if (hq, hkv, d) == k4_heads() else ())
+            for kind in positions:
                 pos = decode_positions(rng, b, t, kind, dev)
                 want = ref.decode_attention(q, k, v, pos)
                 err = decode_compare(f"decode_attention {name} {b, hq, hkv, d, t} pos={kind} "
@@ -605,6 +660,10 @@ def check_decode_attention(rng, gen, dev) -> tuple[list, float]:
                                "tol": DECODE_TOL[dtype]})
                 if name == LM_ARCH and dtype == torch.bfloat16:
                     main_err = max(main_err, err)
+                run = k4_run_slots(b, t, hq, hkv, d, q.element_size())
+                if kind in ("uniform", "runs") and run is not None and run < t:
+                    same_bits(f"decode_attention {name} {b, hq, hkv, d, t} pos={kind} {dtype}",
+                              q, k, v, pos)
             del q, k, v
     return checks, main_err
 
@@ -627,17 +686,63 @@ def library_decode(q, k, v, pos, mask=None) -> torch.Tensor:
     return out.reshape(b, hq, d)
 
 
-def time_decode_attention(rng, gen, dev, b: int, t: int, pos_kind, n_sets: int = 1) -> dict:
+def kernel_device_ms(fn, names: tuple[str, ...], n_iter: int = 20) -> dict:
+    """Device time of a call's kernels by name, from torch.profiler over
+    ``n_iter`` eager calls: the mean per call of every kernel whose name
+    holds each of ``names`` (0.0 for one not launched; None for all when two
+    traces saw no device time).  A programmatic dependent's time runs from
+    its launch, so it overlaps the tail of the kernel before it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n_iter):
+                fn(i)
+            torch.cuda.synchronize()
+        us = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+            for name in names:
+                if name in e.key:
+                    us[name] += t
+        if any(us.values()):
+            return {name: t / 1e3 / n_iter for name, t in us.items()}
+    return dict.fromkeys(names)
+
+
+def k4_shapes() -> list[tuple]:
+    """K4's timed shapes, (name, B, T, pos, cache sets): decode_32k at full
+    caches (the kernels line's main row) and with pos uniform in [1, T],
+    B = 1 at T = 32,768, and lm_generate's step halfway (last).  Rotating
+    sets keep small shapes' K/V out of the 50 MB L2, as a step's 24 layers do."""
+    t32k = configs.LM_SHAPES["decode_32k"]
+    return [("decode_32k", t32k.global_batch, t32k.seq_len, t32k.seq_len, 1),
+            ("decode_32k_uniform", t32k.global_batch, t32k.seq_len, "uniform", 1),
+            ("b1_32k", 1, t32k.seq_len, t32k.seq_len, 8),
+            ("lm_generate", GEN_BATCH, GEN_CACHE, GEN_PROMPT + GEN_STEPS // 2, 24)]
+
+
+# run lengths timed beside the plan's by --k4-timings, at each shape's T
+K4_OTHER_RUNS = {1024: (32, 64, 128, 256, 1024),
+                 32768: (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)}
+
+
+def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_kind,
+                          n_sets: int = 1, other_runs: bool = False) -> dict:
     """K4 at qwen2-0.5b's heads, bf16, B sequences against T slots.
     ``n_sets`` caches rotate so that consecutive launches do not find the
     last one's K/V in the 50 MB L2 (a decode step reads 24 layers' caches
-    in turn).  The bound reads K and V up to each sequence's pos once, q
-    and pos once, and writes the output once; its operations are
-    4·Hq·D per valid slot (q·k and p·v)."""
-    cfg = configs.get(LM_ARCH).config
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    in turn).  pos comes from its own generator of ``seed``, so every run
+    of the script times the same positions.  The bound reads K and V up to
+    each sequence's pos once, q and pos once, and writes the output once;
+    its operations are 4·Hq·D per valid slot (q·k and p·v).  Main kernel
+    and combine are timed apart by torch.profiler; ``other_runs`` also
+    times other run lengths than the plan's (the evidence for the plan)."""
+    hq, hkv, d = k4_heads()
     sets = [decode_inputs(gen, dev, b, hq, hkv, d, t) for _ in range(n_sets)]
-    pos = decode_positions(rng, b, t, pos_kind, dev)
+    pos = decode_positions(np.random.default_rng(seed), b, t, pos_kind, dev)
     n_valid = int(pos.clamp(max=t).sum())
     es = sets[0][0].element_size()
     bytes_moved = n_valid * hkv * d * es * 2 + 2 * b * hq * d * es + 4 * b
@@ -660,20 +765,40 @@ def time_decode_attention(rng, gen, dev, b: int, t: int, pos_kind, n_sets: int =
                          kernel(0), plain(0))
     lib_err = float((library(0).float() - plain(0).float()).abs().max())
     big = b * t >= 1 << 20                               # the plain version moves GBs a call
+    split = kernel_device_ms(kernel, ("decode_attention_kernel", "decode_attention_combine"),
+                             n_iter=max(20, n_sets))
     res = {
-        "batch": b, "slots": t, "pos": pos_kind, "valid_slots": n_valid, "bytes": bytes_moved,
-        "flops": flops, "max_abs_err_vs_plain": err, "library_max_abs_err_vs_plain": lib_err,
+        "name": name, "batch": b, "slots": t, "pos": pos_kind, "valid_slots": n_valid,
+        "bytes": bytes_moved, "flops": flops, "run_slots": k4_run_slots(b, t, hq, hkv, d, es),
+        "max_abs_err_vs_plain": err, "library_max_abs_err_vs_plain": lib_err,
         "kernel_ms": device_ms(kernel, n_iter=max(20, n_sets)),
         "kernel_call_ms": call_ms(kernel, n_iter=max(20, n_sets)),
+        "main_ms": split["decode_attention_kernel"],
+        "combine_ms": split["decode_attention_combine"],
         "plain_ms": device_ms(plain, n_iter=3 if big else 20, replays=2 if big else 5),
         "library_ms": device_ms(library, n_iter=5 if big else 20, replays=2 if big else 5),
         "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
         "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
         else "operations",
     }
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["achieved_tb_per_s"] = bytes_moved / res["kernel_ms"] / 1e9
+    if other_runs and res["run_slots"] is not None:
+        outs = [torch.empty_like(s[0]) for s in sets]
+        cuts = {run: da_kernel.cut(b, hkv, t, d, es, run)
+                for run in K4_OTHER_RUNS.get(t, ()) if run != res["run_slots"]}
+        res["other_runs_ms"] = {
+            run: device_ms(lambda i, c=c: da_kernel.launch(*sets[i % n_sets], pos,
+                                                           outs[i % n_sets], c),
+                           n_iter=max(20, n_sets))
+            for run, c in cuts.items()}
     del sets
     return res
+
+
+def time_decode_attentions(seed: int, gen, dev, other_runs: bool = False) -> list[dict]:
+    return [time_decode_attention(seed, gen, dev, name, b, t, pos, n_sets, other_runs)
+            for name, b, t, pos, n_sets in k4_shapes()]
 
 
 # ----------------------------------------------------------------------- parity
@@ -1231,6 +1356,10 @@ def main() -> None:
                     help="only time K2 at the DLRM shapes, print that line and stop (no "
                          "result line): to time another tree's K2, run a copy of this "
                          "script from that tree's root")
+    ap.add_argument("--k4-timings", action="store_true",
+                    help="only time K4 at its four shapes (with other run lengths beside "
+                         "the plan's), print that line and stop (no result line); a copy "
+                         "of this script times another tree's K4 the same way")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1252,6 +1381,10 @@ def main() -> None:
         emit({"phase": "k2_timings", "card": card,
               "timings": time_dot_interactions(gen, dev, other_store=False)})
         return
+    if args.k4_timings:
+        emit({"phase": "k4_timings", "card": card,
+              "timings": time_decode_attentions(args.seed, gen, dev, other_runs=True)})
+        return
     cfg = PAPER_MODELS[SERVE_ARCH]
     params = recsys.init(gen, cfg, device=dev)           # 40 x 10^6 x 32 float32 on the card
     tables = params["tables"]
@@ -1272,12 +1405,8 @@ def main() -> None:
                  for b in ZOO_BATCHES for f, h, hn in xdeepfm_cin_shapes()]
     da_checks, da_err = check_decode_attention(rng, gen, dev)
     t32k = configs.LM_SHAPES["decode_32k"]
-    da_main = time_decode_attention(rng, gen, dev, t32k.global_batch, t32k.seq_len, t32k.seq_len)
-    da_times = [da_main,
-                time_decode_attention(rng, gen, dev, t32k.global_batch, t32k.seq_len, "uniform"),
-                time_decode_attention(rng, gen, dev, 1, t32k.seq_len, t32k.seq_len, n_sets=8),
-                time_decode_attention(rng, gen, dev, GEN_BATCH, GEN_CACHE,
-                                      GEN_PROMPT + GEN_STEPS // 2, n_sets=24)]
+    da_times = time_decode_attentions(args.seed, gen, dev)
+    da_main = da_times[0]                                # decode_32k, pos = T
     da_err = max([da_err] + [t["max_abs_err_vs_plain"] for t in da_times])
     emit({"phase": "kernel_checks", "card": card,
           "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times,
@@ -1322,7 +1451,6 @@ def main() -> None:
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times
                    if t["arch"] == SERVE_ARCH and t["batch"] == MAIN_BATCHES[-1])
-    gen_k4 = da_times[-1]                                # lm_generate's shape
     k_max = max(h * f for f, h, _ in xdeepfm_cin_shapes())
     cin_main = next(t for t in cin_times
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
@@ -1371,19 +1499,29 @@ def main() -> None:
          "ms": da_main["kernel_ms"], "call_ms": da_main["kernel_call_ms"],
          "plain_ms": da_main["plain_ms"],
          "bound_ms": da_main["bound_ms"], "bound_by": da_main["bound_by"],
-         "library_ms": da_main["library_ms"],
+         "library_ms": da_main["library_ms"], "share_of_bound": da_main["share_of_bound"],
+         "main_ms": da_main["main_ms"], "combine_ms": da_main["combine_ms"],
+         "run_slots": da_main["run_slots"],
+         "design": "a block per (sequence, KV head, run of run_slots slots) with all G query "
+                   "heads, the run length planned on the host for full caches and the runs "
+                   "counted from pos on the card; two-stage 16-byte cp.async tiles; runs "
+                   "combined by a second kernel launched as a programmatic dependent, a "
+                   "block per (sequence, query head, column block), sums in a fixed order",
          "shape": f"decode_32k: q ({t32k.global_batch}, {qwen.n_heads}, {qwen.hd}), "
                   f"k/v ({t32k.global_batch}, {t32k.seq_len}, {qwen.n_kv_heads}, {qwen.hd}) "
                   f"bfloat16, pos = T",
-         "lm_generate": {
-             "launches": generated["launches"]["decode_attention"],
-             "ms": gen_k4["kernel_ms"], "call_ms": gen_k4["kernel_call_ms"],
-             "plain_ms": gen_k4["plain_ms"], "bound_ms": gen_k4["bound_ms"],
-             "bound_by": gen_k4["bound_by"], "library_ms": gen_k4["library_ms"],
-             "share_of_bound": gen_k4["bound_ms"] / gen_k4["kernel_ms"],
-             "shape": f"q ({GEN_BATCH}, {qwen.n_heads}, {qwen.hd}), k/v ({GEN_BATCH}, "
-                      f"{GEN_CACHE}, {qwen.n_kv_heads}, {qwen.hd}) bfloat16, "
-                      f"pos = {gen_k4['pos']}"}},
+         **{t["name"]: {
+             # the uneven and B = 1 shapes are timed only: no driven path runs them
+             "launches": (generated["launches"]["decode_attention"]
+                          if t["name"] == "lm_generate" else 0),
+             "ms": t["kernel_ms"], "call_ms": t["kernel_call_ms"],
+             "main_ms": t["main_ms"], "combine_ms": t["combine_ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"], "share_of_bound": t["share_of_bound"],
+             "run_slots": t["run_slots"],
+             "shape": f"q ({t['batch']}, {qwen.n_heads}, {qwen.hd}), k/v ({t['batch']}, "
+                      f"{t['slots']}, {qwen.n_kv_heads}, {qwen.hd}) bfloat16, pos = {t['pos']}"}
+            for t in da_times[1:]}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """The checks of ``chip_smoke.py`` can fail: K4's tolerance, scaled to the
 plain result, refuses a kernel that zeroes its output or drops a run of
-slots at the main path's cache length, the library attention the LM phases
+slots at the main path's cache lengths (decode_32k's and lm_generate's), the library attention the LM phases
 use as a witness computes the plain version's function, and the logits gate
 refuses a far reading or a control it could not tell apart.  Run on the CPU
 with plain versions standing in for the kernel."""
@@ -47,6 +47,22 @@ def test_decode_compare_refuses_a_broken_kernel_at_a_long_cache(dtype, fault):
            "drop_one_tile": lambda: ref.decode_attention(q, k, v, pos - 64)}[fault]()
     with pytest.raises(SystemExit, match="outside"):
         chip_smoke.decode_compare(fault, bad, want)
+
+
+@pytest.mark.parametrize("fault", ["drop_last_run", "drop_one_tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_compare_refuses_a_dropped_run_at_lm_generate(dtype, fault):
+    """At lm_generate's shape (B = 8, 1,024 slots, pos 528), a kernel that
+    loses the last run of K4's plan (pos - run_slots) or a tile is refused."""
+    from repro_torch.kernels import decode_attention as da
+    b, t, p = chip_smoke.GEN_BATCH, chip_smoke.GEN_CACHE, chip_smoke.GEN_PROMPT + 16
+    q, k, v = _inputs(dtype, b=b, t=t)
+    run = da.plan(b, 2, t, 64, q.element_size(), 132).run_slots
+    pos = torch.full((b,), p, dtype=torch.int32)
+    want = ref.decode_attention(q, k, v, pos)
+    drop = {"drop_last_run": run, "drop_one_tile": da.tile_slots(64, q.element_size())}[fault]
+    with pytest.raises(SystemExit, match="outside"):
+        chip_smoke.decode_compare(fault, ref.decode_attention(q, k, v, pos - drop), want)
 
 
 @pytest.mark.parametrize("b,hq,hkv,d,t", [(3, 14, 2, 64, 100), (2, 8, 8, 16, 33)])

@@ -199,15 +199,21 @@ def _decode_inputs(dev, b, hq, hkv, d, t, dtype, seed=3):
     (3, 14, 2, 64, 1000), (1, 14, 2, 64, 32768),                    # qwen2-0.5b: G = 7
     (5, 7, 1, 8, 77), (2, 8, 2, 8, 1), (3, 4, 4, 16, 130),          # the smoke configs' D
     (2, 32, 32, 96, 300), (1, 56, 8, 128, 4097),                    # phi3 (D = 96), yi (G = 7)
+    (8, 14, 2, 64, 1024),                                           # lm_generate's shape
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel(dev, b, hq, hkv, d, t, dtype):
-    """pos drawn from [1, T] plus the edges 0, 1 and T; float32 within
-    1e-4, bfloat16 within 3e-2, as tests/test_kernels.py holds the Pallas
+    """pos drawn from [1, T] plus the edges 0, 1 and T, and pos on and one
+    slot either side of the plan's run boundaries; float32 within 1e-4,
+    bfloat16 within 3e-2, as tests/test_kernels.py holds the Pallas
     kernel."""
+    from repro_torch.kernels import decode_attention as da
     q, k, v, rng = _decode_inputs(dev, b, hq, hkv, d, t, dtype)
     tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
-    for pos in (rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t)):
+    run = da.plan(b, hkv, t, d, q.element_size(), da.sm_count(dev.index or 0)).run_slots
+    boundaries = np.clip([(i // 3 + 1) * run + i % 3 - 1 for i in range(b)], 1, t)
+    for pos in (rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t),
+                boundaries, np.full(b, min(run + 1, t))):
         pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
         before = ops.launch_counts()["decode_attention"]
         got = ops.decode_attention(q, k, v, pos)
@@ -217,6 +223,36 @@ def test_decode_attention_kernel(dev, b, hq, hkv, d, t, dtype):
         torch.testing.assert_close(got.float(), ref.decode_attention(q, k, v, pos).float(), **tol)
     again = ops.decode_attention(q, k, v, pos)
     assert torch.equal(again, got)                 # no atomics: the same bits every run
+
+
+@pytest.mark.parametrize("b,t,pos", [(8, 1024, "uniform"), (1, 32768, "full"), (3, 1000, "runs")])
+def test_decode_attention_kernel_graph_replay_same_bits(dev, b, t, pos):
+    """At shapes the plan splits into runs (main kernel, then the combine as
+    a programmatic dependent): a call captured in a CUDA graph and replayed
+    gives the bits of an eager call, and a second eager call the same."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, rng = _decode_inputs(dev, b, 14, 2, 64, t, torch.bfloat16)
+    p = da.plan(b, 2, t, 64, 2, da.sm_count(dev.index or 0))
+    assert p.runs > 1
+    pos = {"uniform": rng.integers(1, t + 1, size=b), "full": np.full(b, t),
+           "runs": np.clip([(i + 1) * p.run_slots + i - 1 for i in range(b)], 1, t)}[pos]
+    pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    eager = ops.decode_attention(q, k, v, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.decode_attention(q, k, v, pos)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+    assert torch.equal(ops.decode_attention(q, k, v, pos), eager)
+    torch.testing.assert_close(eager.float(), ref.decode_attention(q, k, v, pos).float(),
+                               rtol=3e-2, atol=3e-2)
 
 
 def test_decode_attention_kernel_past_the_cache(dev):

@@ -409,27 +409,52 @@ def test_decode_attention_edges():
 
 
 @pytest.mark.parametrize("b,hkv,t,d,es,want", [
-    (128, 2, 32768, 64, 2, 1),       # decode_32k: 256 blocks, ~two for every SM
-    (65, 2, 32768, 64, 2, 3),        # 130 blocks leave 2 SMs idle: three runs a sequence
-    (8, 2, 1024, 64, 2, 4),          # the generate phase: 16 blocks; 8 tiles, 2 a run
-    (1, 2, 32768, 64, 2, 128),       # the latency case: 256 runs of 2 tiles
-    (1, 8, 512, 128, 4, 4),          # narrow tiles (512-byte rows): 8 tiles
-    (3, 1, 100, 8, 4, 1),            # one tile: nothing to split
+    # (run_slots, runs, blocks, combine_cols) on a 132-SM card
+    (128, 2, 32768, 64, 2, (4096, 8, 2048, 64)),   # decode_32k: 256 pairs fill the card; runs
+                                                   # of MAX_RUN_SLOTS keep uneven caches short
+    (65, 2, 32768, 64, 2, (4096, 8, 1040, 64)),    # 130 pairs: the same cap
+    (8, 2, 1024, 64, 2, (64, 16, 256, 64)),        # lm_generate: 16 pairs, runs below a tile
+    (1, 2, 32768, 64, 2, (256, 128, 256, 16)),     # B = 1: 128 runs; the combine 16 columns
+                                                   # a block, so a thread walks 4 runs
+    (1, 8, 512, 128, 4, (32, 16, 128, 128)),       # narrow tiles (512-byte rows), runs of a warp
+    (3, 1, 100, 8, 4, (32, 4, 12, 8)),             # D = 8: a combine block takes all of D
+    (512, 2, 1024, 64, 2, (1024, 1, 1024, 64)),    # the card is full: one run, no combine
+    (2, 32, 300, 96, 2, (64, 5, 320, 96)),         # phi3 (D = 96)
+    (1, 1, 10 ** 7, 64, 2, (4096, 2442, 2442, 4)),  # more runs than a thread walks at 4 columns
 ])
 def test_decode_attention_split_count(b, hkv, t, d, es, want):
-    """How K4 splits each sequence on a 132-SM card: not at all once every
-    SM has a block, else enough runs for two blocks per SM, never a run of
-    fewer than MIN_TILES_PER_SPLIT tiles."""
-    tile = da_kernel.tile_slots(d, es)
-    got = da_kernel.split_count(b, hkv, t, tile, 132)
-    assert got == want
-    tiles = -(-t // tile)
-    assert got == 1 or tiles // got >= da_kernel.MIN_TILES_PER_SPLIT
+    """How K4 cuts each sequence on a 132-SM card: runs of one length, for
+    two blocks an SM at full caches, whole tiles (a warp's slots below a
+    tile), at most MAX_RUN_SLOTS; one run where that covers T."""
+    p = da_kernel.plan(b, hkv, t, d, es, 132)
+    assert (p.run_slots, p.runs, p.blocks, p.combine_cols) == want
+    assert p.tile == da_kernel.tile_slots(d, es)
+    assert p.runs == -(-t // p.run_slots) and p.blocks == b * hkv * p.runs
+    assert p.runs <= da_kernel.MAX_RUNS
+    if p.runs > 1:
+        assert p.run_slots <= da_kernel.MAX_RUN_SLOTS
+        quantum = p.tile if p.run_slots > p.tile else da_kernel.RUN_QUANTUM
+        assert p.run_slots % quantum == 0
+        # at most one quantum longer than the length that gives every SM its blocks
+        assert (p.run_slots in (da_kernel.RUN_QUANTUM, da_kernel.MAX_RUN_SLOTS)
+                or b * hkv * -(-t // (p.run_slots - quantum)) >= da_kernel.BLOCKS_PER_SM * 132)
+    assert d % p.combine_cols == 0 and p.combine_cols % 4 == 0
+    subsets = da_kernel.COMBINE_THREADS // (p.combine_cols // 4)
+    assert -(-p.runs // subsets) <= da_kernel.COMBINE_RUNS_PER_THREAD or p.combine_cols == 4
+
+
+def test_decode_attention_cut_takes_other_run_lengths():
+    """``cut`` is the launch for a given run length: the plan's own length
+    gives the plan, a length of at least T one run."""
+    assert da_kernel.cut(8, 2, 1024, 64, 2, 64) == da_kernel.plan(8, 2, 1024, 64, 2, 132)
+    assert da_kernel.cut(8, 2, 1024, 64, 2, 5000).runs == 1
+    c = da_kernel.cut(1, 2, 32768, 64, 2, 128)
+    assert (c.runs, c.combine_cols) == (256, 8)
 
 
 def test_decode_attention_constants_match_the_source():
     """The wrapper refuses what the source is not instantiated for, and
-    sizes the split from the source's tile."""
+    plans with the source's tile and the combine's block size."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "decode_attention.cu").read_text()
@@ -439,6 +464,71 @@ def test_decode_attention_constants_match_the_source():
         list(da_kernel.GROUPS)
     assert re.search(r"TT = ROW <= (\d+) \? (\d+) : (\d+);", src).groups() == tuple(
         str(x) for x in (da_kernel.WIDE_ROW_BYTES, da_kernel.WIDE_TILE, da_kernel.NARROW_TILE))
+    assert re.search(r"kCombineThreads = (\d+);", src).group(1) == str(da_kernel.COMBINE_THREADS)
+    assert re.search(r"kPrefetch = (\d+);", src).group(1) == str(
+        da_kernel.COMBINE_RUNS_PER_THREAD)
+    assert re.search(r"runs > (\d+)", src).group(1) == str(da_kernel.MAX_RUNS)
+
+
+def _split_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: np.ndarray,
+                 run_slots: int) -> torch.Tensor:
+    """K4's split and combine in float64: each sequence's n slots (min(pos,
+    T), all T for pos <= 0) in runs of ``run_slots``, each run's max m, sum
+    l and unnormalised P·V, then sum_z w_z acc_z / sum_z w_z l_z with
+    w_z = exp(m_z - max m), in run order; one run is normalised alone.
+    Result in q's dtype."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, hkv, hq // hkv, d) / d ** 0.5
+    out = torch.empty_like(qg)
+    for i in range(b):
+        p = int(pos[i])
+        n = t if p <= 0 else min(p, t)
+        parts = []
+        for lo in range(0, n, run_slots):
+            hi = min(n, lo + run_slots)
+            s = torch.einsum("hgd,thd->hgt", qg[i], k[i, lo:hi].double())
+            if p <= 0:
+                s = torch.full_like(s, -1e30)
+            m = s.max(dim=-1).values
+            e = torch.exp(s - m[..., None])
+            parts.append((m, e.sum(dim=-1), torch.einsum("hgt,thd->hgd", e, v[i, lo:hi].double())))
+        mx = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+        num = sum(torch.exp(m - mx)[..., None] * acc for m, _, acc in parts)
+        den = sum(torch.exp(m - mx) * l for m, l, _ in parts)
+        out[i] = num / den[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,t", [
+    (2, 8, 2, 64, 256), (4, 4, 4, 32, 128), (1, 16, 8, 128, 512),   # tests/test_kernels.py
+    (8, 14, 2, 64, 1024),                                           # lm_generate (qwen2-0.5b)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_split_model_matches_ref_and_pallas(b, hq, hkv, d, t, dtype):
+    """The plan's runs, combined as K4 combines them (``_split_model``),
+    compute the function: against ref.decode_attention within 1e-5 in
+    float32, and against the Pallas kernel in interpret mode within the
+    sweep's 1e-4 (float32) and 3e-2 (bfloat16), at pos uniform, 0, 1, T,
+    and on and one slot either side of run boundaries."""
+    q, k, v, rng = _decode_inputs(b, hq, hkv, d, t, seed=16)
+    jd, td = DTYPES[dtype]
+    run = da_kernel.plan(b, hkv, t, d, torch.tensor([], dtype=td).element_size(), 132).run_slots
+    assert run < t
+    qt, kt, vt = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    qj, kj, vj = (jnp.asarray(x).astype(jd) for x in (q, k, v))
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
+    edges = [np.clip([(i % 2 + 1) * run + i % 3 - 1 for i in range(b)], 1, t)]
+    for pos in [rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t)] + edges + [
+            np.full(b, run - 1), np.full(b, run), np.full(b, run + 1)]:
+        pos = pos.astype(np.int32)
+        got = _split_model(qt, kt, vt, pos, run)
+        if dtype == "float32":
+            torch.testing.assert_close(got, ref.decode_attention(qt, kt, vt, torch.from_numpy(pos)),
+                                       rtol=1e-5, atol=1e-5)
+        pallas = jax_ops.decode_attention(qj, kj, vj, jnp.asarray(pos), use_pallas=True,
+                                          interpret=True)
+        np.testing.assert_allclose(_np32(got), _np32(pallas), **tol)
 
 
 def test_wrappers_validate_arguments():
