@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port: the quickest proof that the port
 builds its kernels and serves on a card.
 
-    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~2 minutes
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~5 minutes
 
 What it does, one JSON line per phase:
 
@@ -25,6 +25,18 @@ What it does, one JSON line per phase:
                  queries; launch counts are zeroed just before and read just
                  after, and must be exactly one K1 and one K2 per request;
                  one request's logits are held against the plain versions
+  sched          DeepRecSched on the card: the eight paper models at their
+                 published sizes, one at a time; each one's latency curve on
+                 the card through the serving worker's steps (pad, copy,
+                 forward, wait; median of 20 requests a bucket, exactly its
+                 kernels per request, finite logits of the bucket's rows,
+                 the DLRMs' against the plain versions) and on the host's
+                 CPU, on all its threads and on one; the curve files go to
+                 $REPRO_ARTIFACTS, else build/artifacts (never the
+                 committed artifacts/); then at the medium SLA, on each CPU
+                 curve, the static baseline's queries per second, the
+                 tuner's on the CPU alone and the tuner's with the card's
+                 curve as the accelerator (simulated, 40 executors)
   zoo            xDeepFM, AutoInt, MIND and BERT4Rec at their published
                  sizes: forward at serve_p99 (batch 512), xDeepFM's
                  bulk_forward, MIND's and BERT4Rec's score_candidates over
@@ -77,10 +89,10 @@ import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,7 +101,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.paper_models import PAPER_MODELS, SLA_TARGETS  # noqa: E402
-from repro_torch.core.query_gen import PRODUCTION, query_stream  # noqa: E402
+from repro_torch.core import infra  # noqa: E402
+from repro_torch.core.infra import card_line  # noqa: E402
+from repro_torch.core.query_gen import PRODUCTION, generate_queries, query_stream  # noqa: E402
+from repro_torch.core.scheduler import static_baseline, tune  # noqa: E402
+from repro_torch.core.simulator import SchedulerConfig, max_qps_under_sla, simulate  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
@@ -124,6 +140,9 @@ DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # K4: tests/test_kerne
 # up to 0.037 on an H100) and that of an attention that returns zeros
 # (above 1.2), which every run checks the gate would refuse (PERF.md)
 LOGITS_L2_TOL = 0.1
+# the sched phase: the simulated node's executors, as the reference's
+# SchedulerConfig and tune default to (a 40-core CPU)
+SCHED_EXECUTORS = 40
 LM_ARCH = "qwen2-0.5b"
 GEN_BATCH, GEN_PROMPT, GEN_CACHE, GEN_STEPS = 8, 512, 1024, 32
 DECODE_32K_STEPS = 8
@@ -135,13 +154,6 @@ def emit(obj: dict) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 def call_ms(fn, n_iter: int = 20, warmup: int = 3) -> float:
@@ -1016,6 +1028,127 @@ def serve(seed: int, dev, params, cfg, *, qps: float, seconds: float, batch_size
     return out
 
 
+# ------------------------------------------------------------------------ sched
+
+
+def check_curve(name: str, ms: dict) -> None:
+    """A latency curve in ms by bucket: every bucket of ``BUCKETS`` there,
+    nothing else, each finite and positive."""
+    if sorted(ms) != list(BUCKETS):
+        fail(f"{name}: curve has buckets {sorted(ms)}, expected {list(BUCKETS)}")
+    bad = {b: v for b, v in ms.items() if not (np.isfinite(v) and v > 0)}
+    if bad:
+        fail(f"{name}: non-finite or non-positive latencies {bad}")
+
+
+def monotone(ms: dict) -> bool:
+    """True when the curve never falls from one bucket to the next.  The
+    tuner's climb stops at the first bump, so a curve that is not monotone
+    is flagged, not smoothed."""
+    v = [ms[b] for b in sorted(ms)]
+    return all(a <= b for a, b in zip(v, v[1:]))
+
+
+def sched_artifacts() -> Path:
+    """Where the sched phase writes its curve files: ``$REPRO_ARTIFACTS``
+    when the caller names it, else ``build/artifacts`` in the checkout
+    (git-ignored), so a run never rewrites the committed curves."""
+    named = os.environ.get("REPRO_ARTIFACTS")
+    return Path(named) if named else Path(__file__).resolve().parent / "build" / "artifacts"
+
+
+def tune_three(arch: str, cpu, card, sla: float, seed: int) -> dict:
+    """At ``sla``: the static baseline's capacity, the tuner's on the CPU
+    executors alone and the tuner's with ``card`` as the accelerator, with
+    the card's share of the work at 70 % of the last one's capacity."""
+    b0 = static_baseline(1000, SCHED_EXECUTORS)
+    q0 = max_qps_under_sla(cpu, SchedulerConfig(batch_size=b0, n_executors=SCHED_EXECUTORS),
+                           sla)
+    cpu_only = tune(cpu, sla, n_executors=SCHED_EXECUTORS)
+    with_card = tune(cpu, sla, accel=card, n_executors=SCHED_EXECUTORS)
+    for what, q in (("static", q0), ("cpu_only", cpu_only.qps), ("with_card", with_card.qps)):
+        if not (np.isfinite(q) and q > 0):
+            fail(f"sched {arch}: {what} capacity {q} QPS")
+    at70 = simulate(generate_queries(np.random.default_rng(seed), 0.7 * with_card.qps, 3000),
+                    cpu, SchedulerConfig(batch_size=with_card.batch_size,
+                                         offload_threshold=with_card.offload_threshold,
+                                         n_executors=SCHED_EXECUTORS),
+                    accel=card)
+    return {"static": {"batch": b0, "qps": q0},
+            "cpu_only": {"batch": cpu_only.batch_size, "qps": cpu_only.qps},
+            "with_card": {"batch": with_card.batch_size,
+                          "threshold": with_card.offload_threshold, "qps": with_card.qps,
+                          "accel_frac_work_at_70pct": at70.accel_frac_work,
+                          "p95_ms_at_70pct": at70.p95_ms},
+            # the reference's rule at work on a bumpy CPU curve: reported, not refused
+            "tuned_below_static": min(cpu_only.qps, with_card.qps) < q0}
+
+
+def sched(seed: int, dev) -> dict:
+    """DeepRecSched on the card: for each of the eight paper models at its
+    published size, one at a time, the card's latency curve through the
+    serving worker's steps (``infra.measure_card_curve``: pad, copy,
+    forward, wait; exactly ``forward_launches(cfg)`` a request) and the
+    host CPU's curve (``infra.measure_cpu_curve``) twice: on all its
+    threads, the reference's method and the one the curve file keeps, and
+    on one thread, what one of the simulated node's executors (a core) has.
+    Both files go to ``sched_artifacts()``.  Then, on each CPU curve at the
+    model's medium SLA, ``tune_three`` (40 executors, one accelerator, the
+    simulator's request overhead: the reference's constants)."""
+    out_dir = sched_artifacts()
+    rows, total = [], dict.fromkeys(KERNELS, 0)
+    for arch, cfg in PAPER_MODELS.items():
+        t0 = time.monotonic()
+        params = recsys.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        ops.reset_launch_counts()
+        card = infra.measure_card_curve(arch, cfg=cfg, params=params, seed=seed)
+        launches = ops.launch_counts()
+        want = {k: n * card.requests for k, n in forward_launches(cfg).items()}
+        if launches != want:
+            fail(f"sched {arch}: {card.requests} requests launched {launches}, expected {want}")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        card_ms = {int(b): s * 1e3 for b, s in zip(card.curve.batches, card.curve.seconds)}
+        check_curve(f"sched {arch} card curve", card_ms)
+        logit_err = None
+        if cfg.interaction in PLAIN_FORWARD:
+            probe = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, 256,
+                                               with_label=False), dev)
+            logit_err = compare(f"sched {arch} logits vs plain", recsys.forward(params, cfg, probe),
+                                PLAIN_FORWARD[cfg.interaction](params, cfg, probe), 1e-4, 1e-4)
+            del probe
+        del params
+        torch.cuda.empty_cache()
+        card_s = time.monotonic() - t0
+
+        cpu = infra.measure_cpu_curve(arch)
+        cpu_ms = {int(b): s * 1e3 for b, s in zip(cpu.batches, cpu.seconds)}
+        check_curve(f"sched {arch} CPU curve", cpu_ms)
+        cpu1 = infra.measure_cpu_curve(arch, threads=1)
+        cpu1_ms = {int(b): s * 1e3 for b, s in zip(cpu1.batches, cpu1.seconds)}
+        check_curve(f"sched {arch} one-thread CPU curve", cpu1_ms)
+        infra.store_curves(out_dir / infra.CARD_CURVES, {arch: card.curve},
+                           {arch: infra.card_meta(arch, card, cfg=cfg)})
+        infra.store_curves(out_dir / infra.CPU_CURVES, {arch: cpu}, {arch: infra.cpu_meta(arch)})
+
+        t1 = time.monotonic()
+        rows.append({
+            "arch": arch, "sla_ms": SLA_TARGETS[arch].medium_ms,
+            "card_ms": card_ms, "card_steps_ms": card.steps_ms, "card_monotone": monotone(card_ms),
+            "cpu_ms": cpu_ms, "cpu_monotone": monotone(cpu_ms),
+            "cpu_1t_ms": cpu1_ms, "cpu_1t_monotone": monotone(cpu1_ms),
+            **tune_three(arch, cpu, card.curve, SLA_TARGETS[arch].medium_ms, seed),
+            "one_thread": tune_three(arch, cpu1, card.curve, SLA_TARGETS[arch].medium_ms, seed),
+            "launches": launches, "requests": card.requests,
+            "logits_max_abs_err_vs_plain": logit_err,
+            "seconds": {"card": card_s, "cpu_curves": t1 - t0 - card_s,
+                        "tuning": time.monotonic() - t1}})
+    return {"phase": "sched", "executors": SCHED_EXECUTORS, "cpu_curve_iters": infra.CPU_ITERS,
+            "cpu": infra.cpu_model(),
+            "cpu_threads": torch.get_num_threads(), "card_reps": infra.CARD_REPS,
+            "card_warmup": infra.CARD_WARMUP, "artifacts": str(out_dir),
+            "models": rows, "launches": total}
+
+
 # -------------------------------------------------------------------------- zoo
 
 
@@ -1424,6 +1557,10 @@ def main() -> None:
     emit(served)
     del params, tables
 
+    scheduled = sched(args.seed, dev)
+    scheduled["card"] = card
+    emit(scheduled)
+
     zoo_line, xdfm_params = zoo(args.seed, dev, gen)
     zoo_line["card"] = card
     emit(zoo_line)
@@ -1445,8 +1582,8 @@ def main() -> None:
     decoded["card"] = card
     emit(decoded)
 
-    paths = (served["launches"], zoo_line["launches"], served_x["launches"],
-             generated["launches"], decoded["launches"])
+    paths = (served["launches"], scheduled["launches"], zoo_line["launches"],
+             served_x["launches"], generated["launches"], decoded["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times

@@ -106,3 +106,36 @@ def test_cin_float64_bound_is_wider_than_a_float32_sum():
     c = chip_smoke.cin_float64_bound(k)
     u = 2.0 ** -24
     assert (k + 1) * u / (1 - (k + 1) * u) < c < 4 * k * 2 * u / (1 - 4 * k * 2 * u) + 1e-6
+
+
+@pytest.mark.parametrize("fault", ["zero", "negative", "nan", "inf", "missing_bucket",
+                                   "extra_bucket"])
+def test_sched_curve_check_refuses_a_bad_curve(fault):
+    ms = {b: 0.5 + 0.01 * b for b in chip_smoke.BUCKETS}
+    chip_smoke.check_curve("good", dict(ms))
+    if fault == "missing_bucket":
+        del ms[64]
+    elif fault == "extra_bucket":
+        ms[2048] = 30.0
+    else:
+        ms[16] = {"zero": 0.0, "negative": -1.0, "nan": float("nan"), "inf": float("inf")}[fault]
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.check_curve(fault, ms)
+
+
+@pytest.mark.parametrize("ms,flag", [({1: 0.3, 4: 0.3, 16: 0.5}, True),
+                                     ({1: 0.33, 4: 2.71, 16: 1.92}, False)])
+def test_sched_flags_a_curve_that_is_not_monotone(ms, flag):
+    assert chip_smoke.monotone(ms) is flag
+
+
+@pytest.mark.parametrize("named", [False, True])
+def test_sched_writes_its_curves_where_the_caller_names(named, tmp_path, monkeypatch):
+    """A run of the script never rewrites the committed curve files."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if named:
+        monkeypatch.setenv("REPRO_ARTIFACTS", str(tmp_path))
+        assert chip_smoke.sched_artifacts() == tmp_path
+    else:
+        monkeypatch.delenv("REPRO_ARTIFACTS", raising=False)
+        assert chip_smoke.sched_artifacts() == chip_smoke.Path(repo) / "build" / "artifacts"

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import infra
 from repro_torch.data import synthetic as syn
 from repro_torch.kernels import ops, ref
 from repro_torch.models import lm, recsys
@@ -347,3 +348,18 @@ def test_lm_decode_on_gpu_matches_cpu(dev, name):
                                    "decode_attention": 3 * cfg.n_layers}
     for g, w in zip(gots, wants):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_measure_card_curve_runs_on_the_card(dev):
+    """Six positive points, a split of each into pad, copy and forward, and
+    exactly the model's kernels a request: the curve is the card's."""
+    cfg = configs.get("dlrm-rmc1").smoke_config
+    ops.reset_launch_counts()
+    got = infra.measure_card_curve("dlrm-rmc1", cfg=cfg)
+    assert got.curve.batches.tolist() == [1, 4, 16, 64, 256, 1024]
+    assert bool(np.all(got.curve.seconds > 0)) and len(got.curve.seconds) == 6
+    assert got.requests == 6 * (infra.CARD_WARMUP + infra.CARD_REPS)
+    assert ops.launch_counts() == {"embedding_bag": got.requests, "dot_interaction": got.requests,
+                                   "cin_layer": 0, "decode_attention": 0}
+    assert sorted(got.steps_ms) == [1, 4, 16, 64, 256, 1024]
+    assert all(v > 0 for s in got.steps_ms.values() for v in s.values())
