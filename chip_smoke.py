@@ -37,6 +37,19 @@ What it does, one JSON line per phase:
                  curve, the static baseline's queries per second, the
                  tuner's on the CPU alone and the tuner's with the card's
                  curve as the accelerator (simulated, 40 executors)
+  live           DLRM-RMC2 at its published size served live on the card by
+                 one worker (cluster.live_node, the batch knob sched tuned
+                 with the card, buckets to 1,024) and its simulated twin on
+                 the curve calibrated through the runtime, both under
+                 cluster.drive_fleet on one trace: capacity under the SLA on
+                 a probe ladder (live/sim ratio gated to [0.5, 2]), p50/p95
+                 at 0.6 of it with the live p95 split into span components
+                 (which must close within 5 %), the capacity the sched
+                 curve and the bucketed curve predict; then DLRM-RMC1 on
+                 two live nodes, the card and the host CPU, hetero against
+                 round_robin.  Every live run serves every query with no
+                 error and exactly one K1 and one K2 a card request; the
+                 phase must end within 150 s
   zoo            xDeepFM, AutoInt, MIND and BERT4Rec at their published
                  sizes: forward at serve_p99 (batch 512), xDeepFM's
                  bulk_forward, MIND's and BERT4Rec's score_candidates over
@@ -86,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -100,12 +114,18 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.cluster import (BucketedDeviceModel, WallClock, calibrate_device,  # noqa: E402
+                                 drive_fleet, live_node, make_router, sim_backends)
+from repro_torch.cluster.fleet import NodeView  # noqa: E402
 from repro_torch.configs.paper_models import PAPER_MODELS, SLA_TARGETS  # noqa: E402
 from repro_torch.core import infra  # noqa: E402
 from repro_torch.core.infra import card_line  # noqa: E402
-from repro_torch.core.query_gen import PRODUCTION, generate_queries, query_stream  # noqa: E402
+from repro_torch.core.latency_model import TableDeviceModel  # noqa: E402
+from repro_torch.core.query_gen import (PRODUCTION, generate_queries, query_stream,  # noqa: E402
+                                        rescale_trace, sample_trace)
 from repro_torch.core.scheduler import static_baseline, tune  # noqa: E402
-from repro_torch.core.simulator import SchedulerConfig, max_qps_under_sla, simulate  # noqa: E402
+from repro_torch.core.simulator import (SUSTAIN_FRACTION, SchedulerConfig,  # noqa: E402
+                                        max_qps_under_sla, simulate)
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
@@ -143,6 +163,23 @@ LOGITS_L2_TOL = 0.1
 # the sched phase: the simulated node's executors, as the reference's
 # SchedulerConfig and tune default to (a 40-core CPU)
 SCHED_EXECUTORS = 40
+# the live phase: one RMC2 node at buckets up to 1,024 against its twin on
+# the probe ladder and agreement band of the JAX package's
+# benchmarks/live_parity.py (rungs 1.17 apart around the twin's anchor; the
+# 25 % band widened by half a rung), gated on a ratio that says the twin
+# describes the same machine; then two RMC1 nodes, the card and the host
+# CPU, at a knob of 256 (RMC1's batch tuned with the card on the committed
+# curves), where a request costs the host several times what it costs the
+# card and the host node's calibration still takes seconds
+LIVE_MAX_BUCKET = 1024
+LIVE_QUERIES = 600              # a run of the RMC2 node; the two-node part runs 3/5 as many
+LIVE_STEP = 1.17
+LIVE_RUNGS = tuple(0.35 * LIVE_STEP ** k for k in range(9))
+LIVE_AGREE = (0.75 / 1.085, 1.25 * 1.085)
+LIVE_RATIO_GATE = (0.5, 2.0)
+LIVE_SECONDS = 150.0
+LIVE_FLEET_ARCH = "dlrm-rmc1"
+LIVE_FLEET_BATCH = 256
 LM_ARCH = "qwen2-0.5b"
 GEN_BATCH, GEN_PROMPT, GEN_CACHE, GEN_STEPS = 8, 512, 1024, 32
 DECODE_32K_STEPS = 8
@@ -1149,6 +1186,327 @@ def sched(seed: int, dev) -> dict:
             "models": rows, "launches": total}
 
 
+# ------------------------------------------------------------------------- live
+
+
+class LiveModel:
+    """One model served live: ``apply`` runs ``recsys.forward`` on a padded
+    request and counts the requests; ``make_batch`` slices one host
+    template as large as the largest query and bucket, so the feeder
+    thread paces arrivals instead of drawing Zipf ids per query."""
+
+    def __init__(self, params, cfg, seed: int, dev):
+        self.params, self.cfg, self.dev = params, cfg, torch.device(dev)
+        self.label = f"{cfg.name} {'card' if self.dev.type == 'cuda' else 'host CPU'}"
+        self.template = syn.recsys_batch(np.random.default_rng(seed), cfg,
+                                         max(PRODUCTION.max_size, LIVE_MAX_BUCKET),
+                                         with_label=False)
+        self.requests = 0
+        self.finished = 0                # requests whose forward returned
+        self._lock = threading.Lock()
+
+    def apply(self, batch: dict) -> torch.Tensor:
+        with self._lock:
+            self.requests += 1
+        out = recsys.forward(self.params, self.cfg, batch)
+        with self._lock:
+            self.finished += 1
+        return out
+
+    def make_batch(self, size: int, model_id: int) -> dict:
+        return {k: v[:size] for k, v in self.template.items()}
+
+
+def probe_ladder(grid, run_at, sla_ms: float) -> float:
+    """The highest rate of ``grid`` whose run meets the SLA and sustains the
+    offered rate, a failed rung probed once more (the JAX package's
+    ``benchmarks/live_parity.py::_probe_ladder``).  Rungs are probed from
+    the top down and the first to pass ends the probe: the same rung the
+    reference's bottom-up sweep keeps, without the long runs at the
+    lowest rates."""
+    for rate in sorted(grid, reverse=True):
+        for _ in range(2):
+            r = run_at(rate)
+            if r.meets(sla_ms) and r.qps >= SUSTAIN_FRACTION * rate:
+                return rate
+    return 0.0
+
+
+def check_ratio(ratio: float) -> None:
+    """The live node's capacity over its simulated twin's must lie in
+    ``LIVE_RATIO_GATE``: a twin that describes the same machine."""
+    lo, hi = LIVE_RATIO_GATE
+    if not (np.isfinite(ratio) and lo <= ratio <= hi):
+        fail(f"live: live/sim capacity ratio {ratio} outside [{lo}, {hi}]")
+
+
+def check_launches(what: str, launches: dict, per_request: dict[str, dict],
+                   requests: dict) -> None:
+    """Exactly each card model's kernels (``per_request[model]``) for every
+    one of its requests (``requests[model]``), and nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    for m, n in requests.items():
+        for k, per in per_request[m].items():
+            want[k] += per * n
+    if launches != want:
+        fail(f"live {what}: requests {requests} launched {launches}, expected {want}")
+
+
+def check_served(what: str, r, offered: int) -> None:
+    """Every offered query served, none errored or dropped."""
+    if r.n_queries != offered or r.dropped or r.errors:
+        fail(f"live {what}: {r.n_queries} of {offered} queries served, "
+             f"{r.dropped} dropped, {r.errors} errored")
+
+
+class LiveRuns:
+    """Runs live work with the launch counts zeroed just before and read
+    just after, each checked against the card models' requests in it, and
+    keeps the phase's totals."""
+
+    def __init__(self, models: list[LiveModel]):
+        self.models = list(models)
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.runs = 0
+
+    @property
+    def requests(self) -> dict[str, int]:
+        return {m.label: m.requests for m in self.models}
+
+    def __call__(self, what: str, fn):
+        on_card = [m for m in self.models if m.dev.type == "cuda"]
+        before = [m.requests for m in on_card]
+        ops.reset_launch_counts()
+        out = fn()
+        launches = ops.launch_counts()
+        broken = {m.label: m.requests - m.finished for m in self.models
+                  if m.requests != m.finished}
+        if broken:
+            fail(f"live {what}: requests whose forward raised: {broken}")
+        check_launches(what, launches, {m.label: forward_launches(m.cfg) for m in on_card},
+                       {m.label: m.requests - n0 for m, n0 in zip(on_card, before)})
+        self.launches = {k: self.launches[k] + launches[k] for k in KERNELS}
+        self.runs += 1
+        return out
+
+
+def live_builder(model: LiveModel, pool: str, curve, batch: int, max_bucket: int):
+    def build(clock):
+        return live_node(model.apply, model.make_batch, pool=pool, device=curve,
+                         batch_size=batch, max_bucket=max_bucket, clock=clock,
+                         torch_device=model.dev)
+    return build
+
+
+def live_fleet_run(runs: LiveRuns, what: str, times, sizes, builders, router: str,
+                   telemetry: bool = False):
+    """One live run: fresh nodes on one clock, the trace through
+    ``drive_fleet``, every query served."""
+    def run():
+        clock = WallClock()
+        backends = [build(clock) for build in builders]
+        try:
+            return drive_fleet(times, sizes, backends, make_router(router),
+                               telemetry=telemetry)
+        finally:
+            for b in backends:
+                b.close()
+    r = runs(what, run)
+    check_served(what, r, len(times))
+    return r
+
+
+def sim_fleet_run(times, sizes, views, router: str, telemetry: bool = False):
+    return drive_fleet(times, sizes, sim_backends(views), make_router(router),
+                       telemetry=telemetry)
+
+
+def node_capacity(spec, sla_ms: float) -> float:
+    """A one-node capacity under the SLA on ``spec``'s curve, as the JAX
+    package's ``live_parity._node_capacity`` prices it."""
+    return max_qps_under_sla(spec.cpu, spec.scheduler_config(), sla_ms,
+                             size_dist=PRODUCTION, n_queries=400, seed=5)
+
+
+def spec_of(build):
+    probe = build(WallClock())
+    spec = probe.spec
+    probe.close()
+    return spec
+
+
+def live(seed: int, dev, params, cfg, batch: int, card_curve,
+         queries: int = LIVE_QUERIES) -> dict:
+    """DLRM-RMC2 served live on the card against its simulated twin under
+    one driver (``drive_fleet``), the counterpart of the JAX package's
+    ``benchmarks/live_parity.py``; then two live DLRM-RMC1 nodes, one on
+    the card and one on the host CPU, behind ``hetero`` and
+    ``round_robin``.  ``batch`` is the knob the sched phase tuned for RMC2
+    with the card, ``card_curve`` the log-linear card curve it measured."""
+    t_phase = time.monotonic()
+    sla = SLA_TARGETS[cfg.name].medium_ms
+    model = LiveModel(params, cfg, seed, dev)
+    runs = LiveRuns([model])
+    unit_times, sizes = sample_trace(np.random.default_rng(seed), queries, PRODUCTION)
+
+    # 1. one node against its twin: calibrate, probe the live node on the
+    # ladder around the twin's anchor, calibrate again, and probe the twin
+    # on the geometric mean of the two curves; once more if outside the band
+    best, attempts = None, []
+    for attempt in (1, 2):
+        cal1 = runs("calibrate", lambda: calibrate_device(
+            model.apply, model.make_batch, max_bucket=LIVE_MAX_BUCKET, torch_device=dev))
+        build = live_builder(model, "card", cal1, batch, LIVE_MAX_BUCKET)
+        raw_spec = spec_of(build)
+        anchor = node_capacity(raw_spec, sla)
+        grid = [anchor * r for r in LIVE_RUNGS]
+        cap_live = probe_ladder(grid, lambda rate: live_fleet_run(
+            runs, f"node at {rate:.0f} qps", rescale_trace(unit_times, rate), sizes, [build],
+            "round_robin"), sla)
+        cal2 = runs("calibrate", lambda: calibrate_device(
+            model.apply, model.make_batch, max_bucket=LIVE_MAX_BUCKET, torch_device=dev))
+        blend = BucketedDeviceModel(cal1.buckets, np.sqrt(cal1.seconds * cal2.seconds))
+        spec = dataclasses.replace(raw_spec, cpu=blend)
+        views = [NodeView("card", 0, spec, max(anchor, 1e-9))]
+        cap_sim = probe_ladder(grid, lambda rate: sim_fleet_run(
+            rescale_trace(unit_times, rate), sizes, views, "round_robin"), sla)
+        ratio = cap_live / cap_sim if cap_sim > 0 else 0.0
+        attempts.append({"anchor_qps": anchor, "sim_qps": cap_sim, "live_qps": cap_live,
+                         "ratio": ratio})
+        key = abs(np.log(ratio)) if ratio > 0 else np.inf
+        if best is None or key < best[0]:
+            best = (key, cap_sim, cap_live, ratio, blend, views, build, spec)
+        if LIVE_AGREE[0] <= ratio <= LIVE_AGREE[1]:
+            break
+    _, cap_sim, cap_live, ratio, blend, views, build, spec = best
+    check_ratio(ratio)
+
+    # 2. p50/p95 at 0.6 of the lower capacity, with telemetry: the live
+    # p95 split into its span components, which must add up
+    rate = 0.6 * min(cap_sim or 1.0, cap_live or 1.0)
+    times = rescale_trace(unit_times, rate)
+    r_sim = sim_fleet_run(times, sizes, views, "round_robin", telemetry=True)
+    r_live = live_fleet_run(runs, "node at 0.6 capacity", times, sizes, [build],
+                            "round_robin", telemetry=True)
+    rep = r_live.telemetry.attribution((50.0, 95.0, 99.0))
+    closes = {str(p.percentile): p.reconciles(0.05) for p in rep.percentiles}
+    if not all(closes.values()):
+        fail(f"live: the live attribution does not close within 5 %: {closes}")
+    p95 = rep.at(95.0)
+
+    # 3. what the sched phase's log-linear curve predicts for the same node,
+    # beside the bucketed curve's prediction (and both at a knob of 1,024,
+    # where every query up to 1,000 items is one padded request)
+    at = {}
+    for knob in sorted({spec.batch_size, LIVE_MAX_BUCKET}):
+        s = dataclasses.replace(spec, batch_size=knob)
+        at[str(knob)] = {
+            "interpolated_qps": node_capacity(dataclasses.replace(s, cpu=card_curve), sla),
+            "bucketed_qps": node_capacity(s, sla)}
+    node_s = time.monotonic() - t_phase
+
+    # 4. two live RMC1 nodes, the card and the host CPU, hetero against
+    # round_robin, the two routers probed in turn at each rung
+    fleet = live_fleet(seed, dev, runs, max(queries * 3 // 5, 100))
+
+    seconds = time.monotonic() - t_phase
+    lo, hi = LIVE_AGREE
+    out = {
+        "phase": "live", "arch": cfg.name, "sla_ms": sla, "batch_size": spec.batch_size,
+        "max_bucket": LIVE_MAX_BUCKET, "workers": 1, "queries_a_run": queries,
+        "sim_qps": cap_sim, "live_qps": cap_live, "ratio": ratio,
+        "ratio_gate": list(LIVE_RATIO_GATE), "reference_band": [lo, hi],
+        "within_reference_band": bool(lo <= ratio <= hi), "attempts": attempts,
+        "calibrated_ms": {str(int(b)): s * 1e3 for b, s in zip(blend.buckets, blend.seconds)},
+        "sub_capacity": {
+            "qps": rate, "sim_p50_ms": r_sim.p50_ms, "sim_p95_ms": r_sim.p95_ms,
+            "live_p50_ms": r_live.p50_ms, "live_p95_ms": r_live.p95_ms,
+            "live_p99_ms": r_live.p99_ms, "attribution_closes": closes,
+            "live_p95_components_ms": {c: v * 1e3 for c, v in p95.components_s.items()},
+            "live_p95_band_ms": p95.band_latency_s * 1e3},
+        "predicted_capacity": {
+            **at, "live_qps": cap_live,
+            "ms_at_700_items": {"interpolated": card_curve.latency(700) * 1e3,
+                                "bucketed": blend.latency(700) * 1e3}},
+        "fleet": fleet, "node_seconds": node_s, "seconds": seconds, "live_runs": runs.runs,
+        "requests": runs.requests, "launches": runs.launches}
+    if seconds > LIVE_SECONDS:
+        emit(out)                       # what the phase measured, then the failure
+        fail(f"live: the phase took {seconds:.1f} s, more than {LIVE_SECONDS:.0f} s")
+    return out
+
+
+def live_fleet(seed: int, dev, runs: LiveRuns, queries: int) -> dict:
+    """``LIVE_FLEET_ARCH`` at its published size on two live nodes, one on
+    the card and one on the host CPU with its own copy of the weights, at
+    a batch knob of ``LIVE_FLEET_BATCH``.  torch's intra-op threads are
+    cut to all cores but two for the part, so the card node's worker and
+    the feeders keep a core each, and restored after."""
+    cfg = PAPER_MODELS[LIVE_FLEET_ARCH]
+    sla = SLA_TARGETS[LIVE_FLEET_ARCH].medium_ms
+    threads = torch.get_num_threads()
+    cpu_threads = max(1, (os.cpu_count() or 2) - 2)
+    card_params = recsys.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    card = LiveModel(card_params, cfg, seed, dev)
+    host = LiveModel(tree_to(card_params, "cpu"), cfg, seed, "cpu")
+    runs.models += [card, host]
+    unit_times, sizes = sample_trace(np.random.default_rng(seed + 1), queries, PRODUCTION)
+    t0 = time.monotonic()
+    torch.set_num_threads(cpu_threads)
+    try:
+        nodes = {"card": card, "host": host}
+        curves = {k: runs(f"calibrate {k}", lambda m=m: calibrate_device(
+            m.apply, m.make_batch, max_bucket=LIVE_FLEET_BATCH, torch_device=m.dev))
+            for k, m in nodes.items()}
+        builders = [live_builder(m, k, curves[k], LIVE_FLEET_BATCH, LIVE_FLEET_BATCH)
+                    for k, m in nodes.items()]
+        specs = [spec_of(b) for b in builders]
+        w_card, w_host = (node_capacity(s, sla) for s in specs)
+        views = [NodeView("card", 0, specs[0], max(w_card, 1e-9)),
+                 NodeView("host", 0, specs[1], max(w_host, 1e-9))]
+        # the reference's grid: round_robin is pinned near twice the slower
+        # node, hetero approaches the sum; rungs 1.17 apart up to 2.2x the sum
+        grid, rate = [], max(2 * min(w_card, w_host) * 0.55, 1.0)
+        while rate < 2.2 * (w_card + w_host):
+            grid.append(rate)
+            rate *= LIVE_STEP
+        best_live = {"round_robin": 0.0, "hetero": 0.0}
+        best_sim = dict(best_live)
+        for name in best_sim:
+            best_sim[name] = probe_ladder(grid, lambda q, n=name: sim_fleet_run(
+                rescale_trace(unit_times, q), sizes, views, n), sla)
+        # live: the two routers in turn at each rung, from the top down, each
+        # done at its first passing rung (a failed rung probed once more) and
+        # started two rungs above its twin's: with a host node 6-9x slower
+        # than the card, the reference's grid spans 18-19 rungs, and an
+        # overloaded run lasts as long as the slow node takes to drain it
+        top = {n: best_sim[n] * LIVE_STEP ** 2 * (1 + 1e-9) if best_sim[n] else grid[-1]
+               for n in best_live}
+        for q in sorted(grid, reverse=True):
+            for name in [n for n in best_live if not best_live[n] and q <= top[n]]:
+                times = rescale_trace(unit_times, q)
+                for _ in range(2):
+                    r = live_fleet_run(runs, f"{name} at {q:.0f} qps", times, sizes, builders,
+                                       name)
+                    if r.meets(sla) and r.qps >= SUSTAIN_FRACTION * q:
+                        best_live[name] = q
+                        break
+            if all(best_live.values()):
+                break
+    finally:
+        torch.set_num_threads(threads)
+    return {"arch": cfg.name, "sla_ms": sla, "batch_size": LIVE_FLEET_BATCH,
+            "max_bucket": LIVE_FLEET_BATCH, "queries_a_run": queries,
+            "host_threads": cpu_threads, "threads_restored_to": torch.get_num_threads(),
+            "node_qps": {"card": w_card, "host": w_host},
+            "calibrated_ms": {k: {str(int(b)): s * 1e3 for b, s in zip(c.buckets, c.seconds)}
+                              for k, c in curves.items()},
+            "grid_qps": grid, "sim_qps": best_sim, "live_qps": best_live,
+            "seconds": time.monotonic() - t0,
+            "hetero_over_round_robin_live":
+                best_live["hetero"] / max(best_live["round_robin"], 1e-9)}
+
+
 # -------------------------------------------------------------------------- zoo
 
 
@@ -1555,11 +1913,21 @@ def main() -> None:
                    batch_size=64, sla_ms=SLA_TARGETS[SERVE_ARCH].medium_ms, curve=True)
     served["card"] = card
     emit(served)
-    del params, tables
 
     scheduled = sched(args.seed, dev)
     scheduled["card"] = card
     emit(scheduled)
+
+    # RMC2 live against its twin, at the knob the sched phase just tuned
+    # with the card and beside the card curve it measured; then everything
+    # the phase held is freed for the LM phases
+    row = next(r for r in scheduled["models"] if r["arch"] == SERVE_ARCH)
+    card_curve = TableDeviceModel(list(BUCKETS), [row["card_ms"][b] / 1e3 for b in BUCKETS])
+    lived = live(args.seed, dev, params, cfg, row["with_card"]["batch"], card_curve)
+    lived["card"] = card
+    emit(lived)
+    del params, tables
+    torch.cuda.empty_cache()
 
     zoo_line, xdfm_params = zoo(args.seed, dev, gen)
     zoo_line["card"] = card
@@ -1582,7 +1950,7 @@ def main() -> None:
     decoded["card"] = card
     emit(decoded)
 
-    paths = (served["launches"], scheduled["launches"], zoo_line["launches"],
+    paths = (served["launches"], scheduled["launches"], lived["launches"], zoo_line["launches"],
              served_x["launches"], generated["launches"], decoded["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])

@@ -139,3 +139,58 @@ def test_sched_writes_its_curves_where_the_caller_names(named, tmp_path, monkeyp
     else:
         monkeypatch.delenv("REPRO_ARTIFACTS", raising=False)
         assert chip_smoke.sched_artifacts() == chip_smoke.Path(repo) / "build" / "artifacts"
+
+
+class _Run:
+    """What ``probe_ladder`` reads of a run: the SLA verdict and the rate."""
+
+    def __init__(self, ok: bool, qps: float):
+        self.ok, self.qps = ok, qps
+
+    def meets(self, sla_ms: float) -> bool:
+        return self.ok
+
+
+@pytest.mark.parametrize("flaky", [False, True])
+def test_live_probe_keeps_the_highest_passing_rung_and_probes_a_failure_once_more(flaky):
+    """Rungs up to 300 pass; 300 fails its first probe when ``flaky``: the
+    probe still keeps 300, and each rung above is probed exactly twice."""
+    calls = []
+
+    def run_at(rate):
+        calls.append(rate)
+        ok = rate <= 300 and not (flaky and rate == 300 and calls.count(300) == 1)
+        return _Run(ok, rate)
+
+    grid = [100.0, 200.0, 300.0, 400.0, 500.0]
+    assert chip_smoke.probe_ladder(grid, run_at, 400.0) == 300.0
+    assert calls.count(500.0) == calls.count(400.0) == 2
+    assert calls.count(300.0) == (2 if flaky else 1)
+    assert 100.0 not in calls                       # the top passing rung ends the probe
+
+
+def test_live_probe_refuses_a_run_that_does_not_sustain_its_rate():
+    grid = [100.0, 200.0]
+    got = chip_smoke.probe_ladder(grid, lambda rate: _Run(True, 0.5 * rate), 400.0)
+    assert got == 0.0
+
+
+@pytest.mark.parametrize("ratio", [0.0, float("nan"), 0.4, 2.5, float("inf")])
+def test_live_ratio_gate_refuses_a_twin_of_another_machine(ratio):
+    with pytest.raises(SystemExit, match="ratio"):
+        chip_smoke.check_ratio(ratio)
+
+
+@pytest.mark.parametrize("ratio", [1.0, 0.5, 2.0, 0.8])
+def test_live_ratio_gate_passes_a_twin_of_the_same_machine(ratio):
+    chip_smoke.check_ratio(ratio)
+
+
+@pytest.mark.parametrize("off", [-1, 1])
+def test_live_launch_check_refuses_an_off_by_one_count(off):
+    per = {"card": {"embedding_bag": 1, "dot_interaction": 1}}
+    good = {"embedding_bag": 7, "dot_interaction": 7, "cin_layer": 0, "decode_attention": 0}
+    chip_smoke.check_launches("run", good, per, {"card": 7})
+    bad = dict(good, dot_interaction=7 + off)
+    with pytest.raises(SystemExit, match="launched"):
+        chip_smoke.check_launches("run", bad, per, {"card": 7})

@@ -363,3 +363,51 @@ def test_measure_card_curve_runs_on_the_card(dev):
                                    "cin_layer": 0, "decode_attention": 0}
     assert sorted(got.steps_ms) == [1, 4, 16, 64, 256, 1024]
     assert all(v > 0 for s in got.steps_ms.values() for v in s.values())
+
+
+def _live_model(dev, arch="dlrm-rmc1", seed=0):
+    cfg = configs.get(arch).smoke_config
+    params = recsys.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    template = syn.recsys_batch(np.random.default_rng(seed), cfg, 1000, with_label=False)
+    n = [0]
+
+    def apply_fn(batch):
+        n[0] += 1
+        return recsys.forward(params, cfg, batch)
+
+    return apply_fn, (lambda size, model_id: {k: v[:size] for k, v in template.items()}), n
+
+
+def test_calibrate_device_on_the_card_is_positive_and_monotone(dev):
+    from repro_torch.cluster import calibrate_device
+    apply_fn, make_batch, n = _live_model(dev)
+    ops.reset_launch_counts()
+    curve = calibrate_device(apply_fn, make_batch, max_bucket=64, burst=8, reps=3)
+    assert curve.buckets.tolist() == [1, 2, 4, 8, 16, 32, 64]
+    assert bool(np.all(curve.seconds > 0)) and bool(np.all(np.diff(curve.seconds) >= 0))
+    assert n[0] == 7 * 8 * (1 + 3)
+    assert ops.launch_counts() == {"embedding_bag": n[0], "dot_interaction": n[0],
+                                   "cin_layer": 0, "decode_attention": 0}
+
+
+def test_live_node_on_the_card_serves_every_query_with_exact_launches(dev):
+    """A live node named no device runs on the card: every query of a short
+    trace served, none errored, one K1 and one K2 a request."""
+    from repro_torch.cluster import BucketedDeviceModel, drive_fleet, live_node, make_router
+    from repro_torch.core.query_gen import sample_trace
+    apply_fn, make_batch, n = _live_model(dev)
+    curve = BucketedDeviceModel([1, 2, 4, 8, 16, 32, 64], np.full(7, 5e-4))
+    node = live_node(apply_fn, make_batch, pool="card", device=curve, batch_size=32,
+                     max_bucket=64)
+    try:
+        assert node.rt.device.type == "cuda"
+        unit, sizes = sample_trace(np.random.default_rng(1), 60)
+        ops.reset_launch_counts()
+        r = drive_fleet(unit / 200.0, sizes, [node], make_router("round_robin"), telemetry=True)
+        assert (r.n_queries, r.dropped, r.errors) == (60, 0, 0)
+        assert n[0] == int(np.sum(-(-sizes // 32)))
+        assert ops.launch_counts() == {"embedding_bag": n[0], "dot_interaction": n[0],
+                                       "cin_layer": 0, "decode_attention": 0}
+        assert r.telemetry.attribution().reconciles(0.05)
+    finally:
+        node.close()

@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         f"sys.path.insert(0, {REPO!r})\n"
         "import chip_smoke\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
-        "import serve_recsys_torch, quickstart_torch\n"
+        "import serve_recsys_torch, quickstart_torch, live_fleet_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
@@ -42,7 +42,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(code)
     assert res.returncode == 0, res.stderr[-2000:]
     n_modules = sum(1 for _ in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
-    assert int(res.stdout.strip().splitlines()[-1]) == n_modules + 1 >= 31
+    assert int(res.stdout.strip().splitlines()[-1]) == n_modules + 1 >= 64
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
@@ -50,10 +50,11 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "examples", "serve_recsys_torch.py"),
-             os.path.join(REPO, "examples", "quickstart_torch.py")]
+             os.path.join(REPO, "examples", "quickstart_torch.py"),
+             os.path.join(REPO, "examples", "live_fleet_torch.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 31
+    assert len(files) > 64
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
