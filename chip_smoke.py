@@ -58,6 +58,20 @@ What it does, one JSON line per phase:
   serve_xdeepfm  xDeepFM at its published size behind ServingRuntime at a
                  fixed batch size of 512 (no SLA target exists for it, so
                  no controller); exactly one K1 and three K3 per request
+  train          DLRM-RMC2 at its published size, B = 1,024, the
+                 reference's optimiser split (adagrad on the tables, AdamW
+                 on the towers, clip 10): one step's gradients through the
+                 kernels (K1, K1-bwd, K2, K2-bwd) against the plain backward
+                 versions in float64, every leaf; 20 steps of train.loop
+                 with exactly one K1, K1-bwd, K2 and K2-bwd a step; a run
+                 stopped at step 10 with a checkpoint (build/train_ckpt,
+                 removed after) and resumed, its losses against the
+                 straight run's; a step's forward, backward and optimiser
+                 times; K1-bwd and K2-bwd against their plain versions and
+                 timed beside bound, plain and library versions; then
+                 qwen2-0.5b at its published size (bf16, B = 4, S = 1,024):
+                 the chunked loss against the whole one and 3 AdamW steps,
+                 no kernel launched.  Frees all it holds
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -88,6 +102,11 @@ times only K2 at the DLRM shapes and prints no result line; a copy of this
 script run from another tree's root times that tree's K2 the same way (how
 a change is held against its parent on one card).
 
+    python3 chip_smoke.py --train-only   # the train phase's line alone, then stop
+
+runs only the train phase (backward kernels checked and timed) and prints
+no result line.
+
     python3 chip_smoke.py --k4-timings   # K4's timing line alone, then stop
 
 does the same for K4 at its four shapes (decode_32k at pos = T and with pos
@@ -102,6 +121,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import sys
 import threading
@@ -130,6 +150,7 @@ from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
 from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
+from repro_torch.kernels import embedding_bag as eb_kernel  # noqa: E402
 from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
@@ -137,6 +158,10 @@ from repro_torch.models import lm, recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
 from repro_torch.serve.runtime import (OnlineController, ServingRuntime,  # noqa: E402
                                        to_device)
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.loop import train  # noqa: E402
+from repro_torch.train.microbatch import value_and_grad  # noqa: E402
+from repro_torch.utils import leaves_with_paths  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the bound's yardstick
 HBM_BYTES_PER_S = 3.35e12
@@ -152,7 +177,8 @@ ZOO = ("xdeepfm", "autoint", "mind", "bert4rec")
 ZOO_BATCHES = (1, 64, 512)                               # 512: RECSYS_SHAPES serve_p99
 BULK_ROWS = 65_536              # cut from serve_bulk's 262,144 rows to fit the script's time
 BULK_CHUNK = 16_384            # bulk_forward's default; divides BULK_ROWS, so no rounding
-KERNELS = ("embedding_bag", "dot_interaction", "cin_layer", "decode_attention")
+KERNELS = ("embedding_bag", "dot_interaction", "cin_layer", "decode_attention",
+           "embedding_bag_backward", "dot_interaction_backward")
 DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # K4: tests/test_kernels.py's values
 # the logits of a bf16 LM step through K4 against the same step through the
 # plain attention: ||got - want|| / ||want||.  Set between the spread of
@@ -183,6 +209,24 @@ LIVE_FLEET_BATCH = 256
 LM_ARCH = "qwen2-0.5b"
 GEN_BATCH, GEN_PROMPT, GEN_CACHE, GEN_STEPS = 8, 512, 1024, 32
 DECODE_32K_STEPS = 8
+# the train phase: DLRM-RMC2 at its published size at the batch K1 and K2
+# are timed at, the reference's optimiser split and clip; a checkpoint at
+# TRAIN_RESUME_AT under build/ (about 10 GB: tables and their adagrad
+# state), removed after the phase
+TRAIN_ARCH = "dlrm-rmc2"
+TRAIN_BATCH = 1024
+TRAIN_STEPS = 20
+TRAIN_RESUME_AT = 10
+TRAIN_TIMED_STEPS = 5
+TRAIN_CLIP = 10.0
+# losses of a resumed run against the straight run's: K1-bwd's atomics add
+# in another order every run, so not bit for bit
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+# qwen2-0.5b's training steps: S = 2 x lm._LOSS_CHUNK, so the chunked loss
+# runs; chunked and whole sum the same float32 terms in other groupings
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 1024, 3
+LM_CHUNK_RTOL = 1e-2
 
 
 def emit(obj: dict) -> None:
@@ -857,10 +901,10 @@ def forward_launches(cfg) -> dict[str, int]:
     """The launches one ``recsys.forward`` of ``cfg`` makes on the card: K1
     once for the sparse fields (sum/mean pooling), K2 once for the DLRM dot
     interaction, K3 once per CIN layer."""
-    return {"embedding_bag": int(bool(cfg.n_tables) and cfg.pooling in ("sum", "mean")),
+    return {**dict.fromkeys(KERNELS, 0),
+            "embedding_bag": int(bool(cfg.n_tables) and cfg.pooling in ("sum", "mean")),
             "dot_interaction": int(cfg.interaction == "dot"),
-            "cin_layer": len(cfg.cin_layers) if cfg.interaction == "cin" else 0,
-            "decode_attention": 0}
+            "cin_layer": len(cfg.cin_layers) if cfg.interaction == "cin" else 0}
 
 
 def decode_launches(cfg, steps: int) -> dict[str, int]:
@@ -1838,6 +1882,432 @@ def lm_decode_32k(seed: int, dev, gen) -> dict:
 # ------------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------------------ train
+
+
+def recsys_optimizer() -> optim.Optimizer:
+    """The reference's split (src/repro/launch/train.py): adagrad on the
+    tables, AdamW on the dense towers."""
+    return optim.combined(lambda path: "table" in str(path), optim.adagrad(0.02),
+                          optim.adamw(1e-3))
+
+
+class _PlainBag(torch.autograd.Function):
+    """The stacked bag's plain forward, and ``bwd`` in float64 as its
+    backward, cast to the tables' dtype."""
+
+    @staticmethod
+    def forward(ctx, tables, idx, mode, bwd):
+        ctx.save_for_backward(idx)
+        ctx.mode, ctx.vocab, ctx.dtype, ctx.bwd = mode, tables.shape[1], tables.dtype, bwd
+        return ref.embedding_bag_stacked(tables, idx, mode=mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return ctx.bwd(grad.double(), idx, ctx.vocab, mode=ctx.mode).to(ctx.dtype), None, None, None
+
+
+class _PlainDot(torch.autograd.Function):
+    """The dot interaction's plain forward, and ``bwd`` in float64 as its
+    backward, cast to the features' dtype."""
+
+    @staticmethod
+    def forward(ctx, feats, bwd):
+        ctx.save_for_backward(feats)
+        ctx.bwd = bwd
+        return ref.dot_interaction_packed(feats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (feats,) = ctx.saved_tensors
+        return ctx.bwd(grad.double(), feats.double()).to(feats.dtype), None
+
+
+@contextlib.contextmanager
+def plain_backward(k1_bwd=ref.embedding_bag_backward, k2_bwd=ref.dot_interaction_backward):
+    """Inside, the model's pooling and dot interaction run their plain
+    forwards, and ``k1_bwd`` / ``k2_bwd`` (the plain backward versions, in
+    float64, unless a test hands in broken ones) as their backwards: no
+    kernel launches."""
+    kernels = ops.embedding_bag, ops.dot_interaction
+    ops.embedding_bag = lambda tables, idx, mode="sum": _PlainBag.apply(tables, idx, mode, k1_bwd)
+    ops.dot_interaction = lambda feats: _PlainDot.apply(feats, k2_bwd)
+    try:
+        yield
+    finally:
+        ops.embedding_bag, ops.dot_interaction = kernels
+
+
+def step_grads(loss_fn, params, batch) -> tuple[float, dict]:
+    """One step's loss and every leaf's gradient, by path."""
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    return float(loss), dict(leaves_with_paths(grads))
+
+
+def compare_large(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+                  atol: float) -> float:
+    """``compare`` over slices of 2^26 elements, so a 5 GB gradient is never
+    widened to float64 whole."""
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    return max(compare(name, g, w, rtol, atol)
+               for g, w in zip(got.reshape(-1).split(1 << 26), want.reshape(-1).split(1 << 26)))
+
+
+def grad_compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A gradient against its float64 value: |got - want| <= TOL·|want| +
+    TOL·max|want| with float32's TOL.  The atol scales with the gradient: a
+    table's row sums thousands of terms under Zipf ids, in float32 and in
+    no fixed order, and where they cancel the sum is far smaller than the
+    partial sums whose rounding it carries; a term dropped or counted twice
+    moves an element by a whole term's size, far outside."""
+    tol = TOL[torch.float32]
+    return compare_large(name, got, want, tol, tol * float(want.abs().max()))
+
+
+def check_train_grads(what: str, got: dict, want: dict) -> float:
+    """Every leaf of a step's gradients against the plain step's
+    (``grad_compare``).  Returns the largest error."""
+    if got.keys() != want.keys():
+        fail(f"{what}: gradient leaves {sorted(got)} != {sorted(want)}")
+    return max(grad_compare(f"{what} grad {k}", got[k], w) for k, w in want.items())
+
+
+def expect_train_launches(what: str, launches: dict, steps: int) -> None:
+    """Exactly one K1, K1-bwd, K2 and K2-bwd a step, and nothing else."""
+    want = {**dict.fromkeys(KERNELS, 0), "embedding_bag": steps, "dot_interaction": steps,
+            "embedding_bag_backward": steps, "dot_interaction_backward": steps}
+    if launches != want:
+        fail(f"train {what}: {steps} steps launched {launches}, expected {want}")
+
+
+def check_backward_kernels(rng, gen, dev, vocab: int) -> tuple[list, float, float]:
+    """K1-bwd and K2-bwd against their plain versions in float64 on the same
+    inputs: small shapes of every path (mean pooling, bfloat16, D = 1 and
+    130, H = 1), then the DLRMs' shapes at B = 1, 64 and 1,024, RMC2's
+    tables at V = ``vocab``.  K1-bwd (float32 whatever its input) by
+    ``grad_compare``; K2-bwd, which sums F terms in a fixed order, at
+    float32's TOL, bfloat16's for a bfloat16 result."""
+    checks, k1_err, k2_err = [], 0.0, 0.0
+    for b, f, v, h, d, dtype, mode in [(9, 3, 50, 80, 1, torch.float32, "sum"),
+                                       (33, 2, 100, 5, 130, torch.float32, "mean"),
+                                       (65, 4, 1000, 1, 32, torch.bfloat16, "sum"),
+                                       (17, 2, 64, 16, 128, torch.bfloat16, "mean")]:
+        g = torch.randn((b, f, d), generator=gen, device=dev).to(dtype)
+        idx = zipf_ids(rng, (b, f, h), v, dev)
+        err = grad_compare(f"embedding_bag_backward {b, f, v, h, d} {dtype} {mode}",
+                           ops.embedding_bag_backward(g, idx, v, mode=mode),
+                           ref.embedding_bag_backward(g.double(), idx, v, mode=mode))
+        checks.append({"fn": "embedding_bag_backward", "shape": [b, f, v, h, d],
+                       "dtype": str(dtype), "mode": mode, "max_abs_err": err})
+    for name, f, h in [("dlrm-rmc1", 10, 80), (TRAIN_ARCH, 40, 80)]:
+        for b in MAIN_BATCHES:
+            g = torch.randn((b, f, 32), generator=gen, device=dev)
+            idx = zipf_ids(rng, (b, f, h), vocab, dev)
+            got = ops.embedding_bag_backward(g, idx, vocab)
+            err = grad_compare(f"embedding_bag_backward {name} B={b}", got,
+                               ref.embedding_bag_backward(g.double(), idx, vocab))
+            if not torch.equal(ops.embedding_bag_backward(g, idx, vocab), got):
+                fail(f"embedding_bag_backward {name} B={b}: a second launch gave other bits")
+            del got
+            k1_err = max(k1_err, err)
+            checks.append({"fn": "embedding_bag_backward", "model": name,
+                           "shape": [b, f, vocab, h, 32], "max_abs_err": err})
+            torch.cuda.empty_cache()
+    for b, f, d, dtype in [(7, 2, 1, torch.float32), (33, 5, 130, torch.float32),
+                           (64, 27, 16, torch.bfloat16), (9, 41, 32, torch.bfloat16)]:
+        x = (torch.randn((b, f, d), generator=gen, device=dev) / d ** 0.5).to(dtype)
+        g = torch.randn((b, f * (f - 1) // 2), generator=gen, device=dev).to(dtype)
+        err = compare(f"dot_interaction_backward {b, f, d} {dtype}",
+                      ops.dot_interaction_backward(g, x),
+                      ref.dot_interaction_backward(g.double(), x.double()), TOL[dtype], TOL[dtype])
+        checks.append({"fn": "dot_interaction_backward", "shape": [b, f, d], "dtype": str(dtype),
+                       "max_abs_err": err})
+    for name, f in [("dlrm-rmc1/3", 11), (TRAIN_ARCH, 41)]:
+        for b in MAIN_BATCHES:
+            x = torch.randn((b, f, 32), generator=gen, device=dev) / 32 ** 0.5
+            g = torch.randn((b, f * (f - 1) // 2), generator=gen, device=dev)
+            got = ops.dot_interaction_backward(g, x)
+            err = compare(f"dot_interaction_backward {name} B={b}", got,
+                          ref.dot_interaction_backward(g.double(), x.double()),
+                          TOL[torch.float32], TOL[torch.float32])
+            if not torch.equal(ops.dot_interaction_backward(g, x), got):
+                fail(f"dot_interaction_backward {name} B={b}: a second launch gave other bits")
+            k2_err = max(k2_err, err)
+            checks.append({"fn": "dot_interaction_backward", "model": name, "shape": [b, f, 32],
+                           "max_abs_err": err})
+    return checks, k1_err, k2_err
+
+
+def distinct_rows(sets: list[torch.Tensor], vocab: int) -> float:
+    """Mean count of distinct (table, row) pairs an index set touches."""
+    f = sets[0].shape[1]
+    offs = (torch.arange(f, device=sets[0].device, dtype=torch.int64) * vocab)[None, :, None]
+    return statistics.mean(int(torch.unique(s.long() + offs).numel()) for s in sets)
+
+
+def time_embedding_bag_backward(rng, gen, dev, tables: torch.Tensor, batch: int, ids: str,
+                                h: int = PAPER_MODELS[TRAIN_ARCH].hotness) -> dict:
+    """K1-bwd at the tables' shape: the kernel alone into a standing float32
+    buffer (the wrapper's zeroing timed apart), the wrapper's call (zeroing,
+    kernel), the plain version, and the library's dense backward of
+    ``F.embedding_bag`` over the same flat table and bags.  ``ids`` 'zipf'
+    (the training data's skew: a table's hot rows fall to a few owning
+    warps) or 'uniform'.  The bound reads the gradient rows and the indices once and
+    reads and writes every touched row of the gradient once; zeroing the
+    dense buffer has its own bound."""
+    f, v, d = tables.shape
+    if ids == "zipf":
+        sets = [zipf_ids(rng, (batch, f, h), v, dev) for _ in range(8)]
+    else:
+        sets = [torch.from_numpy(rng.integers(0, v, (batch, f, h)).astype(np.int32)).to(dev)
+                for _ in range(8)]
+    gs = [torch.randn((batch, f, d), generator=gen, device=dev) for _ in range(8)]
+    buf = torch.zeros((f, v, d), device=dev)
+    log_w = eb_kernel.backward_warps(f, ix_kernel.sm_count(dev.index or 0))
+    distinct = distinct_rows(sets, v)
+    bytes_moved = batch * f * d * 4 + batch * f * h * 4 + 2 * distinct * d * 4
+    flops = batch * f * h * d
+    res = {
+        "batch": batch, "ids": ids, "distinct_rows": distinct, "lookups": batch * f * h,
+        "warps_a_table": 1 << log_w,
+        "kernel_ms": device_ms(lambda i: eb_kernel.launch_backward(gs[i % 8], sets[i % 8], buf,
+                                                                  mean=False, log_w=log_w)),
+        "zero_ms": device_ms(lambda i: buf.zero_()),
+        "kernel_call_ms": call_ms(lambda i: ops.embedding_bag_backward(gs[i % 8], sets[i % 8], v),
+                                  n_iter=10),
+        "plain_ms": call_ms(lambda i: ref.embedding_bag_backward(gs[i % 8], sets[i % 8], v),
+                            n_iter=5, warmup=1),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+        else "operations",
+        "zero_bound_ms": f * v * d * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+    del buf
+    flat = tables.view(f * v, d).detach().requires_grad_()
+    offs = (torch.arange(f, device=dev, dtype=torch.int64) * v)[None, :, None]
+    outs = [torch.nn.functional.embedding_bag((sets[j].long() + offs).reshape(batch * f, h), flat,
+                                              mode="sum") for j in range(2)]
+    res["library_ms"] = call_ms(lambda i: torch.autograd.grad(
+        outs[i % 2], flat, gs[i % 2].view(batch * f, d), retain_graph=True), n_iter=5, warmup=1)
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    return res
+
+
+def time_dot_interaction_backward(gen, dev, batch: int = TRAIN_BATCH,
+                                  arch: str = TRAIN_ARCH) -> dict:
+    """K2-bwd at a DLRM model's shape (float32), eight input sets rotating,
+    beside its plain version and the library's: autograd's backward of the
+    ``bmm`` and gather forward.  The bound reads features and gradients once
+    and writes the result once; its operations are 2·D for each ordered
+    pair (i, j), i != j."""
+    f = recsys._num_feature_rows(PAPER_MODELS[arch])
+    d = PAPER_MODELS[arch].embed_dim
+    n_out = f * (f - 1) // 2
+    xs = [torch.randn((batch, f, d), generator=gen, device=dev) / d ** 0.5 for _ in range(8)]
+    gs = [torch.randn((batch, n_out), generator=gen, device=dev) for _ in range(8)]
+    bytes_moved = batch * (2 * f * d + n_out) * 4
+    flops = 2 * batch * f * (f - 1) * d
+    pairs = torch.from_numpy(ref.tril_pairs(f)).to(dev)
+    xr = [x.clone().requires_grad_() for x in xs[:2]]
+    outs = [torch.bmm(x, x.transpose(1, 2)).reshape(batch, f * f)[:, pairs] for x in xr]
+    res = {
+        "arch": arch, "batch": batch, "shape": [batch, f, d],
+        "plan": ix_kernel.backward_plan(batch, f, d)._asdict(),
+        "kernel_ms": device_ms(lambda i: ops.dot_interaction_backward(gs[i % 8], xs[i % 8])),
+        "kernel_call_ms": call_ms(lambda i: ops.dot_interaction_backward(gs[i % 8], xs[i % 8])),
+        "plain_ms": device_ms(lambda i: ref.dot_interaction_backward(gs[i % 8], xs[i % 8])),
+        "library_ms": call_ms(lambda i: torch.autograd.grad(outs[i % 2], xr[i % 2], gs[i % 2],
+                                                            retain_graph=True)),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
+        else "operations",
+    }
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    return res
+
+
+def train_step_ms(loss_fn, params, opt, opt_state, batches: list) -> dict:
+    """Medians over ``batches`` (the first a warm-up) of a training step's
+    parts on the device's clock, host issue included: forward (the loss),
+    backward (every gradient), optimiser (clip and update)."""
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [], "step_ms": []}
+    for i, batch in enumerate(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+        def timed(p, b, ev=ev):
+            loss = loss_fn(p, b)
+            ev[1].record()
+            return loss
+
+        ev[0].record()
+        _, grads = value_and_grad(timed, params, batch)
+        ev[2].record()
+        params, opt_state = opt.update(optim.clip_by_global_norm(grads, TRAIN_CLIP), opt_state,
+                                       params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        del grads
+        if i:
+            for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3), (0, 3))):
+                parts[k].append(ev[a].elapsed_time(ev[b]))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def check_losses(what: str, losses: list, n: int) -> None:
+    if len(losses) != n or not all(np.isfinite(losses)):
+        fail(f"train {what}: losses {losses}, expected {n} finite ones")
+
+
+def train_recsys(seed: int, dev, gen) -> dict:
+    """DLRM-RMC2 at its published size: (a) one step's gradients through the
+    kernels against the plain backward versions, then TRAIN_STEPS steps of
+    ``train`` with exactly one K1, K1-bwd, K2 and K2-bwd a step; (c) a run
+    stopped at TRAIN_RESUME_AT with a checkpoint and resumed from it, its
+    losses against the straight run's; (b) a step's parts timed, and K1-bwd
+    and K2-bwd checked against their plain versions and timed."""
+    cfg = PAPER_MODELS[TRAIN_ARCH]
+    rng = np.random.default_rng(seed)
+    params = recsys.init(gen, cfg, device=dev)
+    batches = [to_device(syn.recsys_batch(rng, cfg, TRAIN_BATCH), dev) for _ in range(TRAIN_STEPS)]
+
+    def loss_fn(p, b):
+        return recsys.loss_fn(p, cfg, b)
+
+    ops.reset_launch_counts()
+    loss_k, grads_k = step_grads(loss_fn, params, batches[0])
+    expect_train_launches("gradient step", ops.launch_counts(), 1)
+    before = ops.launch_counts()
+    with plain_backward():
+        loss_p, grads_p = step_grads(loss_fn, params, batches[0])
+    if ops.launch_counts() != before:
+        fail("train: the plain step launched a kernel")
+    grad_err = check_train_grads("train", grads_k, grads_p)
+    loss_err = compare("train loss", torch.tensor(loss_k), torch.tensor(loss_p), 1e-5, 0.0)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    def run(steps, batch_list, losses, **kw):
+        return train(loss_fn, recsys_optimizer(), params, iter(batch_list), num_steps=steps,
+                     log_every=0, clip_norm=TRAIN_CLIP,
+                     hooks=[lambda s, p, m: losses.append(float(m["loss"]))], **kw)
+
+    straight = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = run(TRAIN_STEPS, batches, straight)
+    torch.cuda.synchronize()
+    straight_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    expect_train_launches(f"{TRAIN_STEPS} steps", launches, TRAIN_STEPS)
+    check_losses("straight run", straight, TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    try:
+        first, resumed = [], []
+        t0 = time.monotonic()
+        run(TRAIN_RESUME_AT, batches, first, ckpt_dir=str(TRAIN_CKPT),
+            ckpt_every=TRAIN_RESUME_AT)
+        save_s = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        state = run(TRAIN_STEPS, batches[TRAIN_RESUME_AT:], resumed, ckpt_dir=str(TRAIN_CKPT),
+                    ckpt_every=TRAIN_STEPS)
+        resume_s = time.monotonic() - t0
+        expect_train_launches("resumed run", ops.launch_counts(), TRAIN_STEPS - TRAIN_RESUME_AT)
+        launches = {k: launches[k] + n for k, n in ops.launch_counts().items()}
+        del state
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_losses("resumed run", resumed, TRAIN_STEPS - TRAIN_RESUME_AT)
+    resume_err = compare("train resumed losses", torch.tensor(resumed),
+                         torch.tensor(straight[TRAIN_RESUME_AT:]), TRAIN_RESUME_RTOL, 0.0)
+    compare("train stopped run's losses", torch.tensor(first),
+            torch.tensor(straight[:TRAIN_RESUME_AT]), TRAIN_RESUME_RTOL, 0.0)
+
+    opt = recsys_optimizer()
+    parts = train_step_ms(loss_fn, params, opt, opt.init(params),
+                          batches[:TRAIN_TIMED_STEPS + 1])
+    torch.cuda.empty_cache()
+    checks, k1_err, k2_err = check_backward_kernels(rng, gen, dev, cfg.vocab)
+    k1_times = [time_embedding_bag_backward(rng, gen, dev, params["tables"], TRAIN_BATCH, ids)
+                for ids in ("zipf", "uniform")]
+    k2_time = time_dot_interaction_backward(gen, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, batches
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+            "first_loss": straight[0], "last_loss": straight[-1], "losses": straight,
+            "grad_max_abs_err": grad_err, "loss_abs_err": loss_err, "tol": TOL[torch.float32],
+            "ms_a_step_host": straight_s / TRAIN_STEPS * 1e3, **parts,
+            "resumed_from": TRAIN_RESUME_AT, "resumed_losses": resumed,
+            "resume_max_abs_err": resume_err, "resume_rtol": TRAIN_RESUME_RTOL,
+            "checkpoint_save_s": save_s, "resume_run_s": resume_s,
+            "launches": launches, "backward_checks": checks,
+            "embedding_bag_backward_max_abs_err": k1_err,
+            "dot_interaction_backward_max_abs_err": k2_err,
+            "timings_embedding_bag_backward": k1_times,
+            "timing_dot_interaction_backward": k2_time, "peak_gb": peak / 1e9}
+
+
+def train_lm(seed: int, dev, gen) -> dict:
+    """qwen2-0.5b at its published size (bf16): the chunked loss against the
+    whole one on the first batch, then LM_TRAIN_STEPS AdamW steps of
+    ``train``, every loss finite and no kernel launched (the LM trains
+    through plain attention)."""
+    cfg = configs.get(LM_ARCH).config
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(gen, cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    batches = [to_device(syn.lm_batch(rng, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ), dev)
+               for _ in range(LM_TRAIN_STEPS)]
+    b0 = batches[0]
+    with torch.no_grad():
+        chunked = float(lm.loss_fn(params, cfg, b0))
+        hidden = lm.forward_hidden(params, cfg, b0["tokens"])
+        whole = float(lm._chunk_nll(params, cfg, hidden, b0["labels"])) / hidden.shape[:2].numel()
+        del hidden
+    compare("train_lm chunked loss vs whole", torch.tensor(chunked), torch.tensor(whole),
+            LM_CHUNK_RTOL, 0.0)
+    losses = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = train(lambda p, b: lm.loss_fn(p, cfg, b), optim.adamw(3e-4), params, iter(batches),
+                  num_steps=LM_TRAIN_STEPS, log_every=0, clip_norm=TRAIN_CLIP,
+                  hooks=[lambda s, p, m: losses.append(float(m["loss"]))])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        fail(f"train_lm: launched {launches}; the LM trains through no kernel")
+    check_losses("lm", losses, LM_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return {"arch": LM_ARCH, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+            "steps": LM_TRAIN_STEPS, "losses": losses, "chunked_loss": chunked,
+            "whole_loss": whole, "chunk_rtol": LM_CHUNK_RTOL,
+            "ms_a_step_host": wall / LM_TRAIN_STEPS * 1e3, "launches": launches,
+            "peak_gb": peak / 1e9}
+
+
+def train_phase(seed: int, dev, gen) -> dict:
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    line = {"phase": "train", "recsys": train_recsys(seed, dev, gen)}
+    line["lm"] = train_lm(seed, dev, gen)
+    line["seconds"] = time.monotonic() - t0
+    line["launches"] = line["recsys"]["launches"]
+    return line
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1847,6 +2317,9 @@ def main() -> None:
                     help="only time K2 at the DLRM shapes, print that line and stop (no "
                          "result line): to time another tree's K2, run a copy of this "
                          "script from that tree's root")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only check the backward kernels and run the train phase, print its "
+                         "line and stop (no result line)")
     ap.add_argument("--k4-timings", action="store_true",
                     help="only time K4 at its four shapes (with other run lengths beside "
                          "the plan's), print that line and stop (no result line); a copy "
@@ -1875,6 +2348,9 @@ def main() -> None:
     if args.k4_timings:
         emit({"phase": "k4_timings", "card": card,
               "timings": time_decode_attentions(args.seed, gen, dev, other_runs=True)})
+        return
+    if args.train_only:
+        emit({**train_phase(args.seed, dev, gen), "card": card})
         return
     cfg = PAPER_MODELS[SERVE_ARCH]
     params = recsys.init(gen, cfg, device=dev)           # 40 x 10^6 x 32 float32 on the card
@@ -1940,6 +2416,13 @@ def main() -> None:
     served_x["card"] = card
     emit(served_x)
     del xdfm_params
+    torch.cuda.empty_cache()
+
+    # before the LM serving phases, and freeing all it holds: lm_decode_32k
+    # needs 58 GB of the card
+    trained = train_phase(args.seed, dev, gen)
+    trained["card"] = card
+    emit(trained)
 
     generated = lm_generate(args.seed, dev, gen)
     generated["card"] = card
@@ -1951,7 +2434,8 @@ def main() -> None:
     emit(decoded)
 
     paths = (served["launches"], scheduled["launches"], lived["launches"], zoo_line["launches"],
-             served_x["launches"], generated["launches"], decoded["launches"])
+             served_x["launches"], trained["launches"], generated["launches"],
+             decoded["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times
@@ -1961,6 +2445,9 @@ def main() -> None:
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
     b, f, h, hn, d = cin_main["shape"]
     qwen = configs.get(LM_ARCH).config
+    rec = trained["recsys"]
+    k1b_main, k1b_uniform = rec["timings_embedding_bag_backward"]
+    k2b_main = rec["timing_dot_interaction_backward"]
     emit({"kernels": [
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -1982,6 +2469,42 @@ def main() -> None:
                    "by tile row; at small B lanes split d and halve their sums by shuffles, "
                    "on a full card results are staged and stored as one 16-byte range",
          "shape": "feats (1024, 41, 32) float32"},
+        {"name": "embedding_bag_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag.py:23",
+         "of": "K1's gradient (the TPU kernel has no backward; XLA's autodiff of the "
+               "reference's gather and sum gives it)",
+         "launches": total["embedding_bag_backward"],
+         "max_abs_err": rec["embedding_bag_backward_max_abs_err"],
+         "ms": k1b_main["kernel_ms"], "call_ms": k1b_main["kernel_call_ms"],
+         "plain_ms": k1b_main["plain_ms"], "bound_ms": k1b_main["bound_ms"],
+         "bound_by": k1b_main["bound_by"], "library_ms": k1b_main["library_ms"],
+         "share_of_bound": k1b_main["share_of_bound"], "zero_ms": k1b_main["zero_ms"],
+         "zero_bound_ms": k1b_main["zero_bound_ms"],
+         "uniform_ids": {k: k1b_uniform[k] for k in ("kernel_ms", "bound_ms", "plain_ms",
+                                                     "library_ms", "distinct_rows")},
+         "design": "owner-computes, no atomics: W warps a table, warp w owning the rows "
+                   "r % W == w and scanning the table's lookups in order (32 a ballot, the "
+                   "next bag in flight), lanes over D, a 4-row register cache summing runs "
+                   "of a row before its read-add-write into the zeroed dense gradient; the "
+                   "same bits every launch",
+         "shape": "grad_out (1024, 40, 32) float32, idx (1024, 40, 80) Zipf ids, "
+                  "grad (40, 1000000, 32) float32"},
+        {"name": "dot_interaction_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/interaction.cu",
+         "replaces": "src/repro/kernels/interaction.py:47",
+         "of": "K2's gradient (the TPU kernel has no backward; XLA's autodiff of the "
+               "reference's Gram product and gather gives it)",
+         "launches": total["dot_interaction_backward"],
+         "max_abs_err": rec["dot_interaction_backward_max_abs_err"],
+         "ms": k2b_main["kernel_ms"], "call_ms": k2b_main["kernel_call_ms"],
+         "plain_ms": k2b_main["plain_ms"], "bound_ms": k2b_main["bound_ms"],
+         "bound_by": k2b_main["bound_by"], "library_ms": k2b_main["library_ms"],
+         "share_of_bound": k2b_main["share_of_bound"],
+         "design": "S samples a block; each sample's gradients unpacked into a symmetric "
+                   "(F, F) matrix and its features widened, in shared memory; a thread a "
+                   "column and four rows of the result, sums in a fixed order",
+         "shape": "grad (1024, 820), feats (1024, 41, 32) float32"},
         {"name": "cin_layer", "route": "cuda",
          "source": "src/repro_torch/csrc/cin.cu",
          "replaces": "src/repro/kernels/cin.py:20",

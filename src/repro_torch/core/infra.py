@@ -89,6 +89,7 @@ def cpu_model() -> str:
 # ------------------------------------------------------------ CPU executors
 
 
+@torch.inference_mode()
 def measure_cpu_curve(arch: str, batches=_BATCH_LADDER, iters: int = CPU_ITERS, *,
                       cfg=None, threads: int | None = None) -> lat.TableDeviceModel:
     """Mean time of ``recsys.forward`` on the host's CPU a batch, after one
@@ -145,6 +146,7 @@ class CardCurve:
     requests: int                           # forwards run, warm-ups included
 
 
+@torch.inference_mode()
 def measure_card_curve(arch: str, *, cfg=None, params=None, seed: int = 0) -> CardCurve:
     """One request's cost on the card a bucket, through the serving worker's
     steps: ``pad_batch`` on the host, ``to_device``, ``recsys.forward``, and

@@ -267,6 +267,100 @@ int launch_ks(const Args& a, int ks, cudaStream_t s) {
     }
 }
 
+// ---- K2-bwd: the gradient of the packed interaction with respect to its input
+//
+// What it computes: grad (B, F(F-1)/2) and feats (B, F, D) -> dfeats
+// (B, F, D), dX[i, :] = sum_{j != i} g[pair(i, j)] * X[j, :], pair(i, j) =
+// max(i,j)(max(i,j)-1)/2 + min(i,j): (S + S^T) X with S the strict lower
+// triangle the forward packed.  It is what the reference's autodiff of the
+// Gram product and the triangle gather gives; the TPU kernel has no backward
+// of its own.  Products and sums are float32, in ascending j, so a launch
+// gives the same bits every time; the result is stored in the input's type.
+//
+// What bounds it: bytes.  At DLRM-RMC2's shape (B = 1024, F = 41, D = 32,
+// float32) it reads 5.4 MB of features and 3.4 MB of gradients and writes
+// 5.4 MB, against 110 MFLOP.  The output is (F, D), not the forward's pairs,
+// so the forward's plan does not carry over: a block takes S samples (from
+// kernels/interaction.py::backward_plan), unpacks each sample's gradients
+// into a full symmetric (F, F) matrix G with a zero diagonal and widens its
+// (F, D) slab to float32, both in shared memory; a thread then owns one
+// column d and R rows of dX, reading X[j, d] once for its R rows and G's
+// rows as warp-wide broadcasts (neighbouring threads take neighbouring d).
+constexpr int BWD_ROWS = 4;  // rows of dX a thread owns (kernels/interaction.py's BWD_ROWS)
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void dot_interaction_backward_kernel(const T* __restrict__ grad,
+                                                const T* __restrict__ feats,
+                                                T* __restrict__ dfeats, int B, int F, int D,
+                                                int S) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* sm = reinterpret_cast<float*>(smem);
+    const int groups = (F + BWD_ROWS - 1) / BWD_ROWS;
+    const int rows = groups * BWD_ROWS;       // G's rows, padded with zeros
+    const int per = rows * F + F * D;         // floats a sample holds
+    const long long b0 = (long long)blockIdx.x * S;
+    const int ns = (int)min((long long)S, (long long)B - b0);
+    const int P = F * (F - 1) / 2;
+    const T* g = grad + b0 * P;
+    const T* x = feats + b0 * F * D;
+
+    for (int e = threadIdx.x; e < ns * rows * F; e += blockDim.x) {
+        const int s = e / (rows * F), r = e - s * rows * F;
+        const int i = r / F, j = r - i * F;
+        float v = 0.f;
+        if (i < F && i != j) {
+            const int p = i > j ? i * (i - 1) / 2 + j : j * (j - 1) / 2 + i;
+            v = to_float(g[(long long)s * P + p]);
+        }
+        sm[s * per + r] = v;
+    }
+    for (int e = threadIdx.x; e < ns * F * D; e += blockDim.x) {
+        const int s = e / (F * D);
+        sm[s * per + rows * F + (e - s * F * D)] = to_float(x[e]);
+    }
+    __syncthreads();
+
+    const int items = ns * groups * D;
+    for (int w = threadIdx.x; w < items; w += blockDim.x) {
+        const int s = w / (groups * D), r = w - s * groups * D;
+        const int ig = r / D, d = r - ig * D;
+        const float* G = sm + s * per + ig * BWD_ROWS * F;
+        const float* X = sm + s * per + rows * F;
+        float acc[BWD_ROWS];
+#pragma unroll
+        for (int q = 0; q < BWD_ROWS; ++q) acc[q] = 0.f;
+        for (int j = 0; j < F; ++j) {
+            const float xj = X[j * D + d];
+#pragma unroll
+            for (int q = 0; q < BWD_ROWS; ++q) acc[q] = fmaf(G[q * F + j], xj, acc[q]);
+        }
+        T* out = dfeats + (b0 + s) * (long long)F * D;
+#pragma unroll
+        for (int q = 0; q < BWD_ROWS; ++q) {
+            const int i = ig * BWD_ROWS + q;
+            if (i < F) from_float(out + i * D + d, acc[q]);
+        }
+    }
+}
+
+template <typename T>
+int launch_backward(const void* grad, const void* feats, void* dfeats, int B, int F, int D,
+                    int S, int threads, int smem, cudaStream_t stream) {
+    auto kernel = dot_interaction_backward_kernel<T>;
+    if (smem > 48 * 1024) {
+        cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(B + S - 1) / S, threads, smem, stream>>>(
+        static_cast<const T*>(grad), static_cast<const T*>(feats), static_cast<T*>(dfeats), B,
+        F, D, S);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  packed: 1 = strict lower triangle,
@@ -288,5 +382,23 @@ extern "C" int dot_interaction_launch(const void* feats, void* out, int B, int F
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return launch_ks<float>(a, splits, s);
     if (dtype == 1) return launch_ks<__nv_bfloat16>(a, splits, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K2-bwd.  grad (B, F(F-1)/2), feats and dfeats (B, F, D), all in `dtype`
+// (0 = float32, 1 = bfloat16) and contiguous; samples (S), threads and smem
+// (dynamic shared bytes) come from kernels/interaction.py::backward_plan.
+// Returns cudaGetLastError() after the launch.
+extern "C" int dot_interaction_backward_launch(const void* grad, const void* feats,
+                                               void* dfeats, int B, int F, int D, int dtype,
+                                               int samples, int threads, int smem,
+                                               void* stream) {
+    if (B == 0 || F == 0 || D == 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+        return launch_backward<float>(grad, feats, dfeats, B, F, D, samples, threads, smem, s);
+    if (dtype == 1)
+        return launch_backward<__nv_bfloat16>(grad, feats, dfeats, B, F, D, samples, threads,
+                                              smem, s);
     return (int)cudaErrorInvalidValue;
 }

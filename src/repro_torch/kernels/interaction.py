@@ -1,4 +1,5 @@
-"""ctypes binding of ``csrc/interaction.cu`` (kernel K2), and its plan.
+"""ctypes binding of ``csrc/interaction.cu`` (kernel K2 and its backward,
+K2-bwd), and their plans.
 
 ``plan`` chooses how a launch is cut: samples a block, lanes a register
 tile, threads, the slab's row stride and the shared-memory layout.  It is
@@ -6,7 +7,8 @@ plain arithmetic, tested on the CPU; the kernel trusts what it is given.
 ``launch`` takes tensors that ``ops.dot_interaction`` / ``ops.gram`` have
 already validated, enqueues the kernel on PyTorch's current stream without
 synchronising, and raises if CUDA refused the launch.  ``launch_count``
-rises by one per launch and nowhere else.
+rises by one per launch and nowhere else; ``backward_plan``,
+``launch_backward`` and ``backward_launch_count`` are the same for K2-bwd.
 """
 from __future__ import annotations
 
@@ -34,9 +36,17 @@ TILES_PER_BLOCK = 12
 # multiply-adds, and costs a full card its shuffles
 WORK_PER_SM = 256
 
+# rows of dX a K2-bwd thread owns (csrc's BWD_ROWS)
+BWD_ROWS = 4
+# a K2-bwd block takes samples until it has this many work items (a column
+# of BWD_ROWS rows each), and has at most MAX_THREADS threads
+BWD_ITEMS_PER_BLOCK = 256
+
 launch_count = 0
+backward_launch_count = 0
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
 
 
 class Plan(NamedTuple):
@@ -159,3 +169,57 @@ def launch(feats: torch.Tensor, out: torch.Tensor, p: Plan, *, packed: bool) -> 
         raise RuntimeError(f"dot_interaction kernel launch failed: CUDA error {err}")
     with _count_lock:
         launch_count += 1
+
+
+class BackwardPlan(NamedTuple):
+    samples: int         # S, consecutive samples a block
+    threads: int         # a block's threads, a multiple of 32
+    grid: int            # blocks, ceil(B / S)
+    smem: int            # dynamic shared memory of a block, bytes
+
+
+def backward_sample_bytes(f: int, d: int) -> int:
+    """Shared memory K2-bwd holds a sample in: G as (F rounded up to
+    BWD_ROWS) x F floats, and the (F, D) slab widened to float32."""
+    return 4 * (-(-f // BWD_ROWS) * BWD_ROWS * f + f * d)
+
+
+@functools.lru_cache(maxsize=1024)
+def backward_plan(b: int, f: int, d: int) -> BackwardPlan:
+    """How to launch K2-bwd on feats (B, F, D).  Raises ValueError, naming
+    shared memory, when one sample does not fit a block."""
+    per = backward_sample_bytes(f, d)
+    if per > MAX_SLAB_BYTES:
+        raise ValueError(f"a sample of F={f}, D={d} needs {per} bytes of shared memory in "
+                         f"the backward; a block has {MAX_SLAB_BYTES}")
+    items = -(-f // BWD_ROWS) * d
+    s = max(1, min(b, BWD_ITEMS_PER_BLOCK // max(items, 1), MAX_SLAB_BYTES // per))
+    threads = -(-min(s * items, MAX_THREADS) // 32) * 32
+    return BackwardPlan(samples=s, threads=threads, grid=-(-b // s), smem=s * per)
+
+
+def _backward_function():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load().dot_interaction_backward_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def launch_backward(grad: torch.Tensor, feats: torch.Tensor, out: torch.Tensor,
+                    p: BackwardPlan) -> None:
+    """grad (B, F(F-1)/2), feats and out (B, F, D), one dtype, contiguous on
+    one CUDA device; ``p`` is ``backward_plan``'s for this shape."""
+    global backward_launch_count
+    b, f, d = feats.shape
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _backward_function()(grad.data_ptr(), feats.data_ptr(), out.data_ptr(), b, f, d,
+                                   DTYPE_CODE[feats.dtype], p.samples, p.threads, p.smem,
+                                   stream)
+    if err != 0:
+        raise RuntimeError(f"dot_interaction backward kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        backward_launch_count += 1

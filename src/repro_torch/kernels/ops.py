@@ -9,6 +9,15 @@ The kernels mask their own edges, so nothing is padded here (odd batch
 sizes and ``D = 130`` go straight through).  Each wrapper checks device,
 dtype, shape and contiguity, allocates its output with ``torch.empty``,
 launches on the current stream and does not synchronise.
+
+Gradients.  When autograd needs one, ``embedding_bag`` and
+``dot_interaction`` go through a ``torch.autograd.Function`` whose backward
+is a kernel too (K1-bwd, K2-bwd) on a CUDA tensor, and the plain backward
+in ``ref`` on a CPU tensor.  When none is needed (serving, or no input that
+requires grad) the path is the forward alone, with no graph and no
+backward launch.  The kernels without a backward kernel (``gram``,
+``cin_layer``, ``decode_attention``) raise on a CUDA tensor that needs a
+gradient rather than hand back a result autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -26,14 +35,27 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def launch_counts() -> dict[str, int]:
     """Kernel launches made by this process since the last reset."""
     return {"embedding_bag": _eb.launch_count, "dot_interaction": _ix.launch_count,
-            "cin_layer": _cin.launch_count, "decode_attention": _da.launch_count}
+            "cin_layer": _cin.launch_count, "decode_attention": _da.launch_count,
+            "embedding_bag_backward": _eb.backward_launch_count,
+            "dot_interaction_backward": _ix.backward_launch_count}
 
 
 def reset_launch_counts() -> None:
-    _eb.launch_count = 0
-    _ix.launch_count = 0
+    _eb.launch_count = _eb.backward_launch_count = 0
+    _ix.launch_count = _ix.backward_launch_count = 0
     _cin.launch_count = 0
     _da.launch_count = 0
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _no_backward_kernel(name: str, where: str, *xs: torch.Tensor) -> None:
+    if xs[0].is_cuda and _needs_grad(*xs):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the GPU ({where}); call it under "
+            f"torch.no_grad() or on CPU tensors")
 
 
 def _require_contiguous(name: str, x: torch.Tensor) -> None:
@@ -69,7 +91,13 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mode: str = "sum",
         lo, hi = int(idx.min()), int(idx.max())
         if lo < 0 or hi >= table.shape[-2]:
             raise IndexError(f"indices span [{lo}, {hi}], table has {table.shape[-2]} rows")
+    if _needs_grad(table):
+        return _EmbeddingBag.apply(table, idx, mode)
+    return _embedding_bag(table, idx, mode)
 
+
+def _embedding_bag(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
+    stacked = table.ndim == 3
     if not table.is_cuda:
         if stacked:
             return ref.embedding_bag_stacked(table, idx, mode=mode)
@@ -86,6 +114,62 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mode: str = "sum",
     if out.numel():
         _eb.launch(tables3, idx3, out, mean=(mode == "mean"))
     return out if stacked else out[:, 0, :]
+
+
+def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor, vocab: int, *,
+                           mode: str = "sum") -> torch.Tensor:
+    """The tables' gradient of the stacked ``embedding_bag``: grad_out
+    (B, F, D), idx (B, F, H) → (F, V, D) float32, dense and table-shaped;
+    every lookup adds its bag's gradient row (÷H for ``mean``) into the row
+    it read.  A CUDA tensor launches K1-bwd into a zeroed buffer (D <= 256;
+    the same bits every launch); a CPU tensor takes
+    ``ref.embedding_bag_backward``."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"unknown pooling mode {mode!r}")
+    if grad_out.ndim != 3 or idx.ndim != 3 or grad_out.shape[:2] != idx.shape[:2]:
+        raise ValueError(f"expected grad_out (B, F, D) and idx (B, F, H), got "
+                         f"{tuple(grad_out.shape)}, {tuple(idx.shape)}")
+    if grad_out.dtype not in _DTYPES:
+        raise TypeError(f"grad_out dtype {grad_out.dtype} not supported (float32, bfloat16)")
+    if idx.device != grad_out.device:
+        raise ValueError(f"idx lies on {idx.device}, grad_out on {grad_out.device}")
+    if not grad_out.is_cuda:
+        return ref.embedding_bag_backward(grad_out, idx, vocab, mode=mode)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32 on the GPU, got {idx.dtype}")
+    if grad_out.shape[2] > _eb.MAX_BACKWARD_D:
+        raise ValueError(f"the backward kernel takes D <= {_eb.MAX_BACKWARD_D}, "
+                         f"got {grad_out.shape[2]}")
+    _require_contiguous("grad_out", grad_out)
+    _require_contiguous("idx", idx)
+    grad = torch.zeros((idx.shape[1], vocab, grad_out.shape[2]), dtype=torch.float32,
+                       device=grad_out.device)
+    if grad_out.numel() and idx.shape[2]:
+        log_w = _eb.backward_warps(idx.shape[1], _ix.sm_count(grad_out.device.index))
+        _eb.launch_backward(grad_out, idx, grad, mean=(mode == "mean"), log_w=log_w)
+    return grad
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """K1 forward, K1-bwd backward (plain versions for CPU tensors).  The
+    gradient is accumulated in float32 and cast once to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx, mode):
+        ctx.save_for_backward(idx)
+        ctx.mode, ctx.stacked = mode, table.ndim == 3
+        ctx.vocab, ctx.dtype = table.shape[-2], table.dtype
+        return _embedding_bag(table, idx, mode)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (idx,) = ctx.saved_tensors
+        if ctx.stacked:
+            grad = embedding_bag_backward(grad_out.contiguous(), idx, ctx.vocab, mode=ctx.mode)
+        else:
+            grad = embedding_bag_backward(grad_out[:, None, :].contiguous(),
+                                          idx[:, None, :], ctx.vocab, mode=ctx.mode)[0]
+        return grad.to(ctx.dtype), None, None
 
 
 def _interaction(feats: torch.Tensor, *, packed: bool) -> torch.Tensor:
@@ -109,12 +193,57 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) → (B, F(F-1)/2): the strict lower triangle of each
     sample's Gram matrix in ``np.tril_indices(F, -1)`` order, float32
     accumulation, result in the input's dtype."""
+    if _needs_grad(feats):
+        return _DotInteraction.apply(feats)
     return _interaction(feats, packed=True)
 
 
 def gram(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) → (B, F·F) flattened Gram matrices."""
+    _no_backward_kernel("gram", "dot_interaction has one", feats)
     return _interaction(feats, packed=False)
+
+
+def dot_interaction_backward(grad: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """The input's gradient of ``dot_interaction``: grad (B, F(F-1)/2),
+    feats (B, F, D) → (B, F, D) = (S + Sᵀ)·X, S the strict lower triangle
+    of each sample scattered from grad; float32 accumulation, result in the
+    features' dtype.  A CUDA tensor launches K2-bwd; a CPU tensor takes
+    ``ref.dot_interaction_backward``."""
+    if feats.ndim != 3 or grad.ndim != 2:
+        raise ValueError(f"expected grad (B, P) and feats (B, F, D), got "
+                         f"{tuple(grad.shape)}, {tuple(feats.shape)}")
+    b, f, d = feats.shape
+    if grad.shape != (b, f * (f - 1) // 2):
+        raise ValueError(f"grad {tuple(grad.shape)} does not match feats {tuple(feats.shape)}")
+    if feats.dtype not in _DTYPES or grad.dtype != feats.dtype:
+        raise TypeError(f"grad and feats must share one dtype of float32/bfloat16, got "
+                        f"{grad.dtype}, {feats.dtype}")
+    if grad.device != feats.device:
+        raise ValueError(f"grad lies on {grad.device}, feats on {feats.device}")
+    if not feats.is_cuda:
+        return ref.dot_interaction_backward(grad, feats)
+    _require_contiguous("grad", grad)
+    _require_contiguous("feats", feats)
+    plan = _ix.backward_plan(b, f, d)
+    out = torch.empty_like(feats)
+    if out.numel():
+        _ix.launch_backward(grad, feats, out, plan)
+    return out
+
+
+class _DotInteraction(torch.autograd.Function):
+    """K2 forward, K2-bwd backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.save_for_backward(feats)
+        return _interaction(feats, packed=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (feats,) = ctx.saved_tensors
+        return dot_interaction_backward(grad.contiguous(), feats)
 
 
 def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -138,6 +267,7 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
                         f"{x0.dtype}, {xk.dtype}, {w.dtype}")
     if xk.device != x0.device or w.device != x0.device:
         raise ValueError(f"x0 lies on {x0.device}, xk on {xk.device}, w on {w.device}")
+    _no_backward_kernel("cin_layer", "K3's backward kernel is queued in ROADMAP.md", x0, xk, w)
     if not x0.is_cuda:
         return ref.cin_layer(x0, xk, w)
     for name, t in (("x0", x0), ("xk", xk), ("w", w)):
@@ -174,6 +304,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.device != q.device for x in (k, v, pos)):
         raise ValueError(f"q lies on {q.device}, k on {k.device}, v on {v.device}, "
                          f"pos on {pos.device}")
+    _no_backward_kernel("decode_attention", "K4 serves decoding only", q, k, v)
     if not q.is_cuda:
         return ref.decode_attention(q, k, v, pos)
     if pos.dtype != torch.int32:

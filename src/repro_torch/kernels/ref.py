@@ -43,6 +43,28 @@ def embedding_bag_stacked(tables: torch.Tensor, idx: torch.Tensor, *,
     return out.to(tables.dtype)
 
 
+def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor, vocab: int, *,
+                           mode: str = "sum") -> torch.Tensor:
+    """The gradient of ``embedding_bag_stacked`` with respect to its tables:
+    grad_out (B, F, D), idx (B, F, H) → (F, V, D), every (b, f, h) adding
+    ``grad_out[b, f]`` (divided by H for ``mean``) into row ``idx[b, f, h]``
+    of table f, by ``index_add_``.  A dense table-shaped result, as the
+    reference's autodiff gives; float32 (float64 for a float64 grad_out, the
+    exact value the card's checks use), whatever the tables' dtype."""
+    b, f, h = idx.shape
+    d = grad_out.shape[-1]
+    acc = torch.promote_types(grad_out.dtype, torch.float32)
+    g = grad_out.to(acc)
+    if mode == "mean":
+        g = g / h
+    elif mode != "sum":
+        raise ValueError(f"unknown pooling mode {mode!r}")
+    rows = (idx.long() + torch.arange(f, device=idx.device)[None, :, None] * vocab).reshape(-1)
+    vals = g[:, :, None, :].expand(b, f, h, d).reshape(-1, d)
+    out = torch.zeros((f * vocab, d), dtype=acc, device=grad_out.device)
+    return out.index_add_(0, rows, vals).view(f, vocab, d)
+
+
 def tril_pairs(f: int) -> np.ndarray:
     """Flat indices of the strict lower triangle of an f×f matrix, in
     ``np.tril_indices(f, -1)`` row-major order."""
@@ -63,6 +85,19 @@ def dot_interaction_packed(feats: torch.Tensor) -> torch.Tensor:
     f = feats.shape[1]
     li, lj = torch.tril_indices(f, f, offset=-1, device=feats.device)
     return gram(feats)[:, li * f + lj]
+
+
+def dot_interaction_backward(grad: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``dot_interaction_packed`` with respect to its input:
+    grad (B, F(F-1)/2), feats (B, F, D) → (B, F, D) = (S + Sᵀ)·X, S the
+    strict lower triangle scattered from ``tril_pairs(F)``.  float32
+    (float64 for float64 inputs), stored in the features' dtype."""
+    b, f, _ = feats.shape
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    li, lj = torch.tril_indices(f, f, offset=-1, device=feats.device)
+    s = torch.zeros((b, f, f), dtype=acc, device=feats.device)
+    s[:, li, lj] = grad.to(acc)
+    return torch.bmm(s + s.transpose(1, 2), feats.to(acc)).to(feats.dtype)
 
 
 def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

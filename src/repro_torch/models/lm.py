@@ -1,8 +1,9 @@
-"""Decoder-only transformer LM, inference side: the dense configs (qwen2,
-phi3, yi), GQA + RoPE + RMSNorm + SwiGLU.
+"""Decoder-only transformer LM: the dense configs (qwen2, phi3, yi), GQA +
+RoPE + RMSNorm + SwiGLU.
 
 Entry points:
     forward(params, cfg, tokens)                  logits of a full sequence
+    loss_fn(params, cfg, batch)                   next-token cross-entropy
     prefill(params, cfg, tokens, max_len)         last-token logits and KV caches
     decode_step(params, cfg, token, caches)       one token against the caches
 
@@ -14,13 +15,15 @@ hand-written kernel K4, once per layer per step.  The caches are updated in
 place (see ``layers.attention.decode_attention``).
 
 MoE configs (``n_experts > 0``) raise ``NotImplementedError``:
-``layers/moe.py`` is still to be ported.  Training (``loss_fn``) comes later.
+``layers/moe.py`` is still to be ported.  Training runs no hand-written
+kernel: ``forward_hidden``'s attention is plain tensor code.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.layers import attention as attn_lib
@@ -135,6 +138,35 @@ def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
 def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, V)."""
     return _unembed(params, cfg, forward_hidden(params, cfg, tokens))
+
+
+_LOSS_CHUNK = 512       # sequence chunk of the cross-entropy (big-vocab memory)
+
+
+def _chunk_nll(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed next-token NLL of hidden states x (B, S', d) against labels (B, S')."""
+    logp = torch.log_softmax(_unembed(params, cfg, x).float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].sum()
+
+
+def loss_fn(params, cfg: LMConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, S), logits in float32.  When S is a multiple of
+    ``_LOSS_CHUNK`` and longer than it, the unembedding and log-softmax run
+    one chunk of the sequence at a time, each under activation
+    checkpointing (the reference's ``jax.checkpoint``): peak logits memory
+    is (B, chunk, V), and the backward recomputes each chunk's logits.
+    Dense models only, so the reference's MoE auxiliary term is 0."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = forward_hidden(params, cfg, tokens)
+    b, s, _ = x.shape
+    if s % _LOSS_CHUNK != 0 or s <= _LOSS_CHUNK:
+        return _chunk_nll(params, cfg, x, labels) / (b * s)
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, s, _LOSS_CHUNK):
+        total = total + checkpoint(_chunk_nll, params, cfg, x[:, i:i + _LOSS_CHUNK],
+                                   labels[:, i:i + _LOSS_CHUNK], use_reentrant=False)
+    return total / (b * s)
 
 
 # ---------------------------------------------------------------- serving

@@ -1,4 +1,4 @@
-"""Generalized neural recommendation model (paper Fig. 2), serving side.
+"""Generalized neural recommendation model (paper Fig. 2).
 
 One configurable architecture realizes the eight paper models (NCF, WnD,
 MT-WnD, DLRM-RMC1/2/3, DIN, DIEN) and the rest of the recsys zoo
@@ -9,7 +9,11 @@ and layouts, so ``compat.from_jax_params`` weights drop in.
 
 ``forward`` sends the embedding pooling, the DLRM dot interaction and the
 xDeepFM CIN layers through ``kernels.ops``: on the GPU the hand-written
-kernels serve.
+kernels serve.  ``forward`` and ``loss_fn`` are differentiable: with
+parameters that require grad, the pooling's and the dot interaction's
+gradients are the backward kernels' (K1-bwd, K2-bwd).  The serving entry
+points (``bulk_forward``, ``score_candidates``, the runtime's worker) run
+under ``torch.inference_mode()``.
 
 Batch layout (tensors on the parameters' device):
     dense      (B, n_dense)            float   — continuous features
@@ -192,7 +196,6 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
 
-@torch.inference_mode()
 def forward(params, cfg: RecConfig, batch: dict) -> torch.Tensor:
     """→ CTR logits (B,) (or (B, n_tasks) for multi-task models)."""
     it = cfg.interaction
@@ -331,3 +334,16 @@ def score_candidates(params, cfg: RecConfig, batch: dict) -> torch.Tensor:
         h = _bert4rec_encode(params, cfg, batch)[:, -1]              # (B, D)
         return torch.einsum("bd,bcd->bc", h, cand)
     raise ValueError(f"{cfg.name} has no two-tower retrieval head")
+
+
+# ------------------------------------------------------------------- loss
+
+
+def loss_fn(params, cfg: RecConfig, batch: dict) -> torch.Tensor:
+    """Binary cross-entropy with logits in float32 (the CTR task); a
+    multi-task model averages its tasks."""
+    logits = forward(params, cfg, batch).float()
+    labels = batch["label"].float()
+    per = (torch.maximum(logits, logits.new_zeros(())) - logits * labels
+           + torch.log1p(torch.exp(-logits.abs())))
+    return per.mean()

@@ -183,7 +183,8 @@ class ServingRuntime:
             try:
                 bucket = bucket_for(req.size, self.max_bucket)
                 padded = pad_batch(req.batch, bucket)
-                self._apply(to_device(padded, self.device))
+                with torch.inference_mode():         # serving builds no graph
+                    self._apply(to_device(padded, self.device))
                 if on_gpu:
                     # the launches above are only enqueued; the request is
                     # done when the device has run them

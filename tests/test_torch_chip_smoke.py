@@ -189,8 +189,83 @@ def test_live_ratio_gate_passes_a_twin_of_the_same_machine(ratio):
 @pytest.mark.parametrize("off", [-1, 1])
 def test_live_launch_check_refuses_an_off_by_one_count(off):
     per = {"card": {"embedding_bag": 1, "dot_interaction": 1}}
-    good = {"embedding_bag": 7, "dot_interaction": 7, "cin_layer": 0, "decode_attention": 0}
+    good = {"embedding_bag": 7, "dot_interaction": 7, "cin_layer": 0, "decode_attention": 0,
+            "embedding_bag_backward": 0, "dot_interaction_backward": 0}
     chip_smoke.check_launches("run", good, per, {"card": 7})
     bad = dict(good, dot_interaction=7 + off)
     with pytest.raises(SystemExit, match="launched"):
         chip_smoke.check_launches("run", bad, per, {"card": 7})
+
+
+# ------------------------------------------------------------ the train gate
+
+
+def _train_step():
+    """DLRM-RMC2's smoke config on the CPU: 64 samples of Zipf ids over 100
+    rows a table, so rows repeat within bags and across them."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import recsys
+    cfg = configs.get(chip_smoke.TRAIN_ARCH).smoke_config
+    params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in syn.recsys_batch(np.random.default_rng(0), cfg, 64).items()}
+    return (lambda p, b: recsys.loss_fn(p, cfg, b)), params, batch
+
+
+def _k1_bwd_writes_instead_of_adding(grad, idx, vocab, mode="sum"):
+    """A K1-bwd that writes where it should add: of the lookups that share a
+    row, one lookup's gradient survives."""
+    b, f, h = idx.shape
+    d = grad.shape[-1]
+    rows = (idx.long() + torch.arange(f)[None, :, None] * vocab).reshape(-1)
+    out = torch.zeros((f * vocab, d), dtype=grad.dtype)
+    out[rows] = grad[:, :, None, :].expand(b, f, h, d).reshape(-1, d)
+    return out.view(f, vocab, d)
+
+
+def _k2_bwd_without_the_transpose(grad, feats):
+    """A K2-bwd that forgets the Sᵀ half: S·X alone."""
+    b, f, _ = feats.shape
+    s = torch.zeros((b, f * f), dtype=grad.dtype)
+    s[:, torch.from_numpy(ref.tril_pairs(f))] = grad
+    return torch.bmm(s.view(b, f, f), feats)
+
+
+def test_train_gradient_gate_passes_the_port_and_refuses_no_launch():
+    """The port's step on the CPU (the plain forward, the plain backward in
+    float32) passes against the float64 plain step, and neither launches."""
+    from repro_torch.kernels import ops
+    loss_fn, params, batch = _train_step()
+    ops.reset_launch_counts()
+    _, got = chip_smoke.step_grads(loss_fn, params, batch)
+    with chip_smoke.plain_backward():
+        _, want = chip_smoke.step_grads(loss_fn, params, batch)
+    assert chip_smoke.check_train_grads("cpu", got, want) < 1e-6
+    assert set(ops.launch_counts().values()) == {0}
+    assert float(want["['tables']"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("fault", ["k1_bwd", "k2_bwd"])
+def test_train_gradient_gate_refuses_a_broken_backward(fault):
+    loss_fn, params, batch = _train_step()
+    with chip_smoke.plain_backward():
+        _, want = chip_smoke.step_grads(loss_fn, params, batch)
+    broken = {"k1_bwd": _k1_bwd_writes_instead_of_adding,
+              "k2_bwd": _k2_bwd_without_the_transpose}[fault]
+    with chip_smoke.plain_backward(**{fault: broken}):
+        _, bad = chip_smoke.step_grads(loss_fn, params, batch)
+    with pytest.raises(SystemExit, match="outside"):
+        chip_smoke.check_train_grads("broken", bad, want)
+
+
+@pytest.mark.parametrize("off", [-1, 1])
+def test_train_launch_check_refuses_an_off_by_one_count(off):
+    steps = chip_smoke.TRAIN_STEPS
+    good = {**dict.fromkeys(chip_smoke.KERNELS, 0), "embedding_bag": steps,
+            "dot_interaction": steps, "embedding_bag_backward": steps,
+            "dot_interaction_backward": steps}
+    chip_smoke.expect_train_launches("run", good, steps)
+    with pytest.raises(SystemExit, match="launched"):
+        chip_smoke.expect_train_launches("run", dict(good, embedding_bag_backward=steps + off),
+                                         steps)

@@ -18,6 +18,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import lm, recsys
 
 pytestmark = pytest.mark.gpu
+# serving launches no backward kernel
+NO_BWD = {"embedding_bag_backward": 0, "dot_interaction_backward": 0}
 
 
 @pytest.fixture
@@ -85,6 +87,173 @@ def test_dot_interaction_kernel_unaligned_start(dev, b, f, d, offset, dtype):
     torch.testing.assert_close(got.float(), ref.dot_interaction_packed(feats).float(), **_tol(dtype))
     torch.testing.assert_close(full.float(), ref.gram(feats).float(), **_tol(dtype))
     assert torch.equal(ops.dot_interaction(feats), got)
+
+
+def _grad_close(got, want):
+    """A float32 gradient against its float64 value: rtol 2e-5, atol 2e-5
+    of its largest magnitude (chip_smoke.grad_compare's rule): a row sums
+    thousands of terms in no fixed order, and where they cancel the result
+    is far below the partial sums whose rounding it carries."""
+    torch.testing.assert_close(got.double(), want, rtol=2e-5,
+                               atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,f,v,h,d", [
+    (65, 3, 1000, 80, 32), (7, 2, 50, 1, 32), (9, 4, 300, 80, 1), (33, 2, 100, 5, 130),
+    (65, 3, 1000, 80, 130), (1, 40, 5000, 80, 32), (1024, 5, 10000, 80, 32),
+    (5, 2, 70, 200, 64), (3, 1, 40, 7, 256),          # H beyond the 128 in flight; D = 256
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_kernel(dev, b, f, v, h, d, dtype, mode):
+    """K1-bwd against the plain backward in float64 on the same gradient
+    rows (bfloat16 ones widened exactly), every table's dense gradient, by
+    ``_grad_close``.  Odd B, D = 1, 32 (the 16-byte vector atomics) and 130
+    (scalar), H = 1 and 80, Zipf ids (hot rows)."""
+    rng = np.random.default_rng(4)
+    g = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(syn._zipf_ids(rng, (b, f, h), v).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    got = ops.embedding_bag_backward(g, idx, v, mode=mode)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["embedding_bag_backward"] == 1
+    assert got.dtype == torch.float32 and got.shape == (f, v, d)
+    _grad_close(got, ref.embedding_bag_backward(g.double(), idx, v, mode=mode))
+
+
+def test_embedding_bag_backward_kernel_same_bits_every_launch(dev):
+    """No atomics: every row is summed by its one owning warp in the same
+    order, so RMC2's shape under Zipf ids gives the same bits twice, and a
+    table beyond D = 256 is refused."""
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.normal(size=(1024, 40, 32)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(syn._zipf_ids(rng, (1024, 40, 80), 100_000).astype(np.int32)).to(dev)
+    first = ops.embedding_bag_backward(g, idx, 100_000)
+    assert torch.equal(ops.embedding_bag_backward(g, idx, 100_000), first)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ops.embedding_bag_backward(torch.zeros((2, 1, 257), device=dev),
+                                   torch.zeros((2, 1, 3), dtype=torch.int32, device=dev), 4)
+
+
+@pytest.mark.parametrize("d", [1, 32, 130])
+def test_embedding_bag_backward_kernel_all_lookups_on_one_row(dev, d):
+    """The contention worst case: every lookup of every bag hits row 0 of
+    its table (65 x 80 adds a row); every other row stays exactly 0."""
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(size=(65, 3, d)).astype(np.float32)).to(dev)
+    idx = torch.zeros((65, 3, 80), dtype=torch.int32, device=dev)
+    got = ops.embedding_bag_backward(g, idx, 20)
+    torch.cuda.synchronize()
+    _grad_close(got, ref.embedding_bag_backward(g.double(), idx, 20))
+    assert not got[:, 1:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_embedding_bag_autograd_launches_k1_and_k1_bwd(dev, dtype, stacked):
+    """Through autograd: one K1 and one K1-bwd, and the tables' gradient in
+    their own dtype, against the plain backward."""
+    rng = np.random.default_rng(6)
+    t = torch.from_numpy(rng.normal(size=(3, 400, 32)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, 400, size=(17, 3, 9)).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(17, 3, 32)).astype(np.float32)).to(dev, dtype)
+    if not stacked:
+        t, idx, g = t[0].contiguous(), idx[:, 0].contiguous(), g[:, 0].contiguous()
+    t.requires_grad_()
+    ops.reset_launch_counts()
+    (grad,) = torch.autograd.grad(ops.embedding_bag(t, idx), t, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": 0, "cin_layer": 0,
+                                   "decode_attention": 0, "embedding_bag_backward": 1,
+                                   "dot_interaction_backward": 0}
+    want = ref.embedding_bag_backward(g.double().reshape(17, -1, 32),
+                                      idx.reshape(17, -1, 9), 400).reshape(t.shape)
+    assert grad.dtype == dtype
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(grad.double(), want, **_tol(dtype))
+    else:
+        _grad_close(grad, want)
+
+
+@pytest.mark.parametrize("b,f,d", [(1, 2, 1), (7, 2, 32), (33, 3, 130), (65, 11, 32),
+                                   (9, 27, 16), (1024, 41, 32), (5, 41, 130), (3, 41, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interaction_backward_kernel(dev, b, f, d, dtype):
+    """K2-bwd against the plain backward in float64 on the same inputs:
+    float32 within 2e-5, bfloat16 outputs within 2e-2; F from 2 to 41, odd
+    B, D = 1, 32 and 130.  A second launch gives the same bits (no atomics,
+    sums in a fixed order)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.normal(size=(b, f, d)) / d ** 0.5).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32)).to(dev, dtype)
+    ops.reset_launch_counts()
+    got = ops.dot_interaction_backward(g, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["dot_interaction_backward"] == 1
+    assert got.dtype == dtype and got.shape == (b, f, d)
+    want = ref.dot_interaction_backward(g.double(), x.double())
+    torch.testing.assert_close(got.double(), want, **_tol(dtype))
+    assert torch.equal(ops.dot_interaction_backward(g, x), got)
+
+
+def test_dot_interaction_autograd_launches_k2_and_k2_bwd(dev):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(64, 41, 32)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(64, 820)).astype(np.float32)).to(dev)
+    x.requires_grad_()
+    ops.reset_launch_counts()
+    (grad,) = torch.autograd.grad(ops.dot_interaction(x), x, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 1, "cin_layer": 0,
+                                   "decode_attention": 0, "embedding_bag_backward": 0,
+                                   "dot_interaction_backward": 1}
+    torch.testing.assert_close(grad.double(), ref.dot_interaction_backward(g.double(), x.double()),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_kernels_without_a_backward_raise_under_grad(dev):
+    """K3, K4 and the full Gram product have no backward kernel: on a CUDA
+    tensor that needs a gradient they raise, never hand back a result that
+    autograd cannot see through; under no_grad they run."""
+    x0, xk, w = (torch.randn(s, device=dev) for s in ((2, 3, 4), (2, 5, 4), (15, 6)))
+    w.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.cin_layer(x0, xk, w)
+    with torch.no_grad():
+        assert ops.cin_layer(x0, xk, w).shape == (2, 6, 4)
+    feats = torch.randn((2, 3, 4), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gram"):
+        ops.gram(feats)
+    q = torch.randn((1, 2, 8), device=dev, requires_grad=True)
+    kv = torch.randn((1, 4, 1, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        ops.decode_attention(q, kv, kv, torch.tensor([2], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("name", ["dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3", "wnd"])
+def test_train_step_on_gpu_matches_cpu(dev, name):
+    """One loss and every leaf's gradient of a paper smoke config on the
+    card (K1, K1-bwd, and for the DLRMs K2, K2-bwd, once each) against the
+    plain versions on the CPU, float32 within 1e-4."""
+    from repro_torch.train.microbatch import value_and_grad
+    from repro_torch.utils import leaves_with_paths
+    cfg = configs.get(name).smoke_config
+    params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             syn.recsys_batch(np.random.default_rng(0), cfg, 33).items()}
+    loss_fn = lambda p, b: recsys.loss_fn(p, cfg, b)             # noqa: E731
+    want_loss, want = value_and_grad(loss_fn, params, batch)
+    params_d = torch.utils._pytree.tree_map(lambda x: x.to(dev), params)
+    ops.reset_launch_counts()
+    loss, got = value_and_grad(loss_fn, params_d, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    dot = int(cfg.interaction == "dot")
+    assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": dot, "cin_layer": 0,
+                                   "decode_attention": 0, "embedding_bag_backward": 1,
+                                   "dot_interaction_backward": dot}
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-4)
+    for (k, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4, msg=k)
 
 
 def _cin_inputs(dev, b, f, h, hn, d, dtype, seed=2):
@@ -320,7 +489,8 @@ def test_forward_on_gpu_matches_cpu(dev, name):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     if name == "xdeepfm":          # K1 once, K3 once per CIN layer
         assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": 0,
-                                       "cin_layer": len(cfg.cin_layers), "decode_attention": 0}
+                                       "cin_layer": len(cfg.cin_layers), "decode_attention": 0,
+                                       **NO_BWD}
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"])
@@ -345,7 +515,7 @@ def test_lm_decode_on_gpu_matches_cpu(dev, name):
         gots.append(got)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0,
-                                   "decode_attention": 3 * cfg.n_layers}
+                                   "decode_attention": 3 * cfg.n_layers, **NO_BWD}
     for g, w in zip(gots, wants):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
@@ -360,7 +530,7 @@ def test_measure_card_curve_runs_on_the_card(dev):
     assert bool(np.all(got.curve.seconds > 0)) and len(got.curve.seconds) == 6
     assert got.requests == 6 * (infra.CARD_WARMUP + infra.CARD_REPS)
     assert ops.launch_counts() == {"embedding_bag": got.requests, "dot_interaction": got.requests,
-                                   "cin_layer": 0, "decode_attention": 0}
+                                   "cin_layer": 0, "decode_attention": 0, **NO_BWD}
     assert sorted(got.steps_ms) == [1, 4, 16, 64, 256, 1024]
     assert all(v > 0 for s in got.steps_ms.values() for v in s.values())
 
@@ -387,7 +557,7 @@ def test_calibrate_device_on_the_card_is_positive_and_monotone(dev):
     assert bool(np.all(curve.seconds > 0)) and bool(np.all(np.diff(curve.seconds) >= 0))
     assert n[0] == 7 * 8 * (1 + 3)
     assert ops.launch_counts() == {"embedding_bag": n[0], "dot_interaction": n[0],
-                                   "cin_layer": 0, "decode_attention": 0}
+                                   "cin_layer": 0, "decode_attention": 0, **NO_BWD}
 
 
 def test_live_node_on_the_card_serves_every_query_with_exact_launches(dev):
@@ -407,7 +577,7 @@ def test_live_node_on_the_card_serves_every_query_with_exact_launches(dev):
         assert (r.n_queries, r.dropped, r.errors) == (60, 0, 0)
         assert n[0] == int(np.sum(-(-sizes // 32)))
         assert ops.launch_counts() == {"embedding_bag": n[0], "dot_interaction": n[0],
-                                       "cin_layer": 0, "decode_attention": 0}
+                                       "cin_layer": 0, "decode_attention": 0, **NO_BWD}
         assert r.telemetry.attribution().reconciles(0.05)
     finally:
         node.close()

@@ -587,3 +587,27 @@ def test_empty_batch():
     assert ops.decode_attention(torch.zeros((0, 4, 8)), torch.zeros((0, 3, 2, 8)),
                                 torch.zeros((0, 3, 2, 8)),
                                 torch.zeros(0, dtype=torch.int32)).shape == (0, 4, 8)
+
+
+@pytest.mark.parametrize("f,sms,want", [(40, 132, 64), (10, 132, 128), (1, 132, 128),
+                                        (26, 132, 128), (41, 132, 64), (200, 132, 16),
+                                        (5000, 132, 1)])
+def test_embedding_bag_backward_warps_a_table(f, sms, want):
+    """K1-bwd's plan: a power of two of warps a table, about 32 warps an SM
+    over all tables, at most 128 and at least 1."""
+    from repro_torch.kernels import embedding_bag as eb
+    assert 1 << eb.backward_warps(f, sms) == want
+
+
+@pytest.mark.parametrize("b,f,d", [(1024, 41, 32), (1024, 11, 32), (7, 2, 1), (5, 41, 130),
+                                   (64, 27, 16)])
+def test_dot_interaction_backward_plan(b, f, d):
+    """K2-bwd's plan: whole samples a block within shared memory, threads a
+    multiple of 32 for the block's columns, every sample covered."""
+    from repro_torch.kernels import interaction as ix
+    p = ix.backward_plan(b, f, d)
+    assert p.smem == p.samples * ix.backward_sample_bytes(f, d) <= ix.MAX_SLAB_BYTES
+    assert p.threads % 32 == 0 and 32 <= p.threads <= ix.MAX_THREADS
+    assert p.grid * p.samples >= b > (p.grid - 1) * p.samples
+    with pytest.raises(ValueError, match="shared memory"):
+        ix.backward_plan(2, 300, 64)
