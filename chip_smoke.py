@@ -86,6 +86,28 @@ What it does, one JSON line per phase:
                  its logits against the plain, library and zeroed
                  attentions', then 8 decode steps timed against the step's
                  bound; exactly 24 K4 launches a step
+  lm_moe         the two mixture-of-experts LMs at their published sizes
+                 (bf16, seeded weights), each under lm_generate's traffic
+                 (8 prompts of 512 tokens into 1,024-slot caches):
+                 granite-moe-1b-a400m for 32 teacher-forced decode steps,
+                 then qwen3-moe-30b-a3b (30.5 B parameters, 61 GB) for 8,
+                 once every earlier phase has freed its tensors; exactly
+                 n_layers K4 launches a step and no K1-K3; each step's
+                 logits against the plain and library attentions', one step
+                 with every K4 call held against the plain version, a
+                 zeroed attention as the control; the MoE layers' dropped
+                 share at prefill and at decode; K4 timed at each model's
+                 heads
+  remote         two worker processes of mlp:128:256:2 serving on the card
+                 behind WorkerSupervisor (repro_torch.serve.remote): the
+                 card's own account that both hold it (their pids among
+                 nvidia-smi's compute apps or, where a pid namespace hides
+                 them, one more compute app a worker while they serve and
+                 none after, and each worker's open /dev/nvidiaN);
+                 calibration in lockstep, a drive_fleet trace at half the calibrated
+                 capacity with every query served, then a trace with a
+                 SIGKILL of one worker mid-run whose queries re-route; no
+                 worker outlives the phase, which must end within 60 s
   kernels        per kernel: launches over the driven paths, max error, and
                  at its main-path shape its time on the card (CUDA-graph
                  replay, no host time between launches), the host's time for
@@ -96,23 +118,22 @@ then the card line and, last, {"ok": true, "device": {...}}.  Any failed
 phase raises: the script exits non-zero and prints no result.  It also
 exits non-zero when no CUDA device is present.
 
-    python3 chip_smoke.py --k2-timings   # K2's timing line alone, then stop
+    python3 chip_smoke.py --only PHASE   # that phase's line alone, then stop
 
-times only K2 at the DLRM shapes and prints no result line; a copy of this
-script run from another tree's root times that tree's K2 the same way (how
-a change is held against its parent on one card).
+builds the kernels, runs only PHASE (a key of ONLY) and prints its line and
+no result line:
 
-    python3 chip_smoke.py --train-only   # the train phase's line alone, then stop
+  train        the train phase (backward kernels checked and timed)
+  lm_moe       the lm_moe phase
+  remote       the remote phase
+  k2_timings   K2 timed at the DLRM shapes
+  k4_timings   K4 timed at its four shapes (decode_32k at pos = T and with
+               pos uniform, B = 1 at 32,768 slots, lm_generate's step), main
+               kernel and combine timed apart by torch.profiler and other
+               run lengths than the plan's timed beside it
 
-runs only the train phase (backward kernels checked and timed) and prints
-no result line.
-
-    python3 chip_smoke.py --k4-timings   # K4's timing line alone, then stop
-
-does the same for K4 at its four shapes (decode_32k at pos = T and with pos
-uniform, B = 1 at 32,768 slots, lm_generate's step), with main kernel and
-combine timed apart by torch.profiler and other run lengths than the plan's
-timed beside it.
+A copy of this script run from another tree's root times that tree's K2 or
+K4 the same way (how a change is held against its parent on one card).
 """
 from __future__ import annotations
 
@@ -123,6 +144,7 @@ import json
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import threading
 import time
@@ -134,15 +156,17 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.cluster import (BucketedDeviceModel, WallClock, calibrate_device,  # noqa: E402
-                                 drive_fleet, live_node, make_router, sim_backends)
+from repro_torch.cluster import (BucketedDeviceModel, FleetFaults, NodeKill,  # noqa: E402
+                                 WallClock, WorkerSupervisor, boot_remote_fleet,
+                                 calibrate_device, drive_fleet, live_node, make_router,
+                                 sim_backends)
 from repro_torch.cluster.fleet import NodeView  # noqa: E402
 from repro_torch.configs.paper_models import PAPER_MODELS, SLA_TARGETS  # noqa: E402
 from repro_torch.core import infra  # noqa: E402
 from repro_torch.core.infra import card_line  # noqa: E402
 from repro_torch.core.latency_model import TableDeviceModel  # noqa: E402
-from repro_torch.core.query_gen import (PRODUCTION, generate_queries, query_stream,  # noqa: E402
-                                        rescale_trace, sample_trace)
+from repro_torch.core.query_gen import (PRODUCTION, SizeDist, generate_queries,  # noqa: E402
+                                        query_stream, rescale_trace, sample_trace)
 from repro_torch.core.scheduler import static_baseline, tune  # noqa: E402
 from repro_torch.core.simulator import (SUSTAIN_FRACTION, SchedulerConfig,  # noqa: E402
                                         max_qps_under_sla, simulate)
@@ -153,6 +177,7 @@ from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
 from repro_torch.kernels import embedding_bag as eb_kernel  # noqa: E402
 from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
+from repro_torch.layers import moe as moe_lib  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
 from repro_torch.models import lm, recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
@@ -183,8 +208,10 @@ DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # K4: tests/test_kerne
 # the logits of a bf16 LM step through K4 against the same step through the
 # plain attention: ||got - want|| / ||want||.  Set between the spread of
 # two correct attentions (K4 and the library's, both against the plain one:
-# up to 0.037 on an H100) and that of an attention that returns zeros
-# (above 1.2), which every run checks the gate would refuse (PERF.md)
+# up to 0.037 in the dense LMs and 0.075 in the MoE LMs, where a routing
+# choice or a capacity drop can flip on a 1-ulp change, on an H100) and
+# that of an attention that returns zeros (above 1.2), which every run
+# checks the gate would refuse (PERF.md)
 LOGITS_L2_TOL = 0.1
 # the sched phase: the simulated node's executors, as the reference's
 # SchedulerConfig and tune default to (a 40-core CPU)
@@ -227,6 +254,18 @@ TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
 # runs; chunked and whole sum the same float32 terms in other groupings
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 1024, 3
 LM_CHUNK_RTOL = 1e-2
+# the lm_moe phase: both MoE LMs at their published sizes under
+# lm_generate's traffic; qwen3-moe (61 GB of weights) for fewer steps
+MOE_STEPS = {"granite-moe-1b-a400m": GEN_STEPS, "qwen3-moe-30b-a3b": 8}
+# the remote phase: two card workers of the JAX package's live_parity
+# MLP behind the supervisor, buckets to 64, each run HORIZON seconds of
+# trace at half the lockstep-calibrated capacity
+REMOTE_MODEL = "mlp:128:256:2"
+REMOTE_NODES = 2
+REMOTE_MAX_BUCKET = 64
+REMOTE_LOAD = 0.5
+REMOTE_HORIZON_S = 2.0
+REMOTE_SECONDS = 60.0
 
 
 def emit(obj: dict) -> None:
@@ -730,9 +769,10 @@ def check_decode_attention(rng, gen, dev) -> tuple[list, float]:
               (LM_ARCH, GEN_BATCH, qwen.n_heads, qwen.n_kv_heads, qwen.hd, GEN_CACHE),
               (LM_ARCH, 3, qwen.n_heads, qwen.n_kv_heads, qwen.hd, 1000),    # T not a tile multiple
               (LM_ARCH, 3, qwen.n_heads, qwen.n_kv_heads, qwen.hd, 1)]       # T = 1
-    for name in ("qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"):                 # D 8, 16 and phi3's 96
+    # D 8, 16 and phi3's 96; the MoE LMs' (D, G) (64, 2) and (128, 8)
+    for name in ("qwen2-0.5b", "phi3-mini-3.8b", "yi-34b") + tuple(MOE_STEPS):
         for cfg in (configs.get(name).smoke_config, configs.get(name).config):
-            if cfg.hd != qwen.hd:
+            if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != k4_heads():
                 shapes.append((cfg.name, 5, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 77))
     dtypes = {s: (torch.float32, torch.bfloat16) for s in shapes}
     for b in (t32k.global_batch, 1):          # bf16 here: time_decode_attention's checks
@@ -817,14 +857,16 @@ def k4_shapes() -> list[tuple]:
             ("lm_generate", GEN_BATCH, GEN_CACHE, GEN_PROMPT + GEN_STEPS // 2, 24)]
 
 
-# run lengths timed beside the plan's by --k4-timings, at each shape's T
+# run lengths timed beside the plan's by --only k4_timings, at each shape's T
 K4_OTHER_RUNS = {1024: (32, 64, 128, 256, 1024),
                  32768: (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)}
 
 
 def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_kind,
-                          n_sets: int = 1, other_runs: bool = False) -> dict:
-    """K4 at qwen2-0.5b's heads, bf16, B sequences against T slots.
+                          n_sets: int = 1, other_runs: bool = False,
+                          heads: tuple[int, int, int] | None = None) -> dict:
+    """K4 at qwen2-0.5b's heads (or ``heads``, (Hq, Hkv, D)), bf16, B
+    sequences against T slots.
     ``n_sets`` caches rotate so that consecutive launches do not find the
     last one's K/V in the 50 MB L2 (a decode step reads 24 layers' caches
     in turn).  pos comes from its own generator of ``seed``, so every run
@@ -833,7 +875,7 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
     its operations are 4·Hq·D per valid slot (q·k and p·v).  Main kernel
     and combine are timed apart by torch.profiler; ``other_runs`` also
     times other run lengths than the plan's (the evidence for the plan)."""
-    hq, hkv, d = k4_heads()
+    hq, hkv, d = heads or k4_heads()
     sets = [decode_inputs(gen, dev, b, hq, hkv, d, t) for _ in range(n_sets)]
     pos = decode_positions(np.random.default_rng(seed), b, t, pos_kind, dev)
     n_valid = int(pos.clamp(max=t).sum())
@@ -861,7 +903,8 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
     split = kernel_device_ms(kernel, ("decode_attention_kernel", "decode_attention_combine"),
                              n_iter=max(20, n_sets))
     res = {
-        "name": name, "batch": b, "slots": t, "pos": pos_kind, "valid_slots": n_valid,
+        "name": name, "heads": [hq, hkv, d], "batch": b, "slots": t, "pos": pos_kind,
+        "valid_slots": n_valid,
         "bytes": bytes_moved, "flops": flops, "run_slots": k4_run_slots(b, t, hq, hkv, d, es),
         "max_abs_err_vs_plain": err, "library_max_abs_err_vs_plain": lib_err,
         "kernel_ms": device_ms(kernel, n_iter=max(20, n_sets)),
@@ -1879,6 +1922,329 @@ def lm_decode_32k(seed: int, dev, gen) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def moe_recorded(drops: list):
+    """Within it, every MoE layer appends its dropped share (a 0-d tensor,
+    read only after the timed work) to ``drops``."""
+    apply = moe_lib.apply_moe
+
+    def run(params, x, **kw):
+        y, aux = apply(params, x, **kw)
+        drops.append(aux["dropped_frac"])
+        return y, aux
+    moe_lib.apply_moe = run
+    try:
+        yield
+    finally:
+        moe_lib.apply_moe = apply
+
+
+def check_moe_launches(arch: str, cfg, per_step: list[dict], total: dict) -> None:
+    """Every decode step launched exactly n_layers K4 and nothing else, and
+    the run (prefill included) nothing more."""
+    want = decode_launches(cfg, 1)
+    for i, step in enumerate(per_step):
+        if step != want:
+            fail(f"lm_moe {arch}: step {i} launched {step}, expected {want}")
+    if total != decode_launches(cfg, len(per_step)):
+        fail(f"lm_moe {arch}: prefill + {len(per_step)} steps launched {total}, "
+             f"expected {decode_launches(cfg, len(per_step))}")
+
+
+def mean_drop(drops: list) -> float:
+    return float(torch.stack(drops).float().mean()) if drops else float("nan")
+
+
+def lm_moe_run(seed: int, dev, gen, arch: str) -> dict:
+    """One MoE LM at its published size, bf16, under lm_generate's traffic:
+    K4 timed at its heads over n_layers rotating caches; prefill of
+    GEN_BATCH prompts of GEN_PROMPT tokens into GEN_CACHE-slot caches, then
+    ``MOE_STEPS[arch]`` teacher-forced decode steps, each timed on the
+    host's clock with its launches counted, and its logits held against the
+    same step through the plain attention and the library attention, each
+    on its own copy of the caches; the layers' dropped shares recorded.
+    Then the last step again with every K4 call held against the plain
+    version, with a zeroed attention (the control) and as a CUDA graph for
+    the device's time of a step."""
+    cfg = configs.get(arch).config
+    steps = MOE_STEPS[arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    k4 = time_decode_attention(seed, gen, dev, f"lm_moe {arch}", GEN_BATCH, GEN_CACHE,
+                               GEN_PROMPT + GEN_STEPS // 2, n_sets=cfg.n_layers,
+                               heads=(cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+    params = lm.init(gen, cfg, device=dev)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, GEN_BATCH,
+                                         GEN_PROMPT + steps)["tokens"]).to(dev)
+    prompt = toks[:, :GEN_PROMPT]
+    ops.reset_launch_counts()
+    prefill_drops: list = []
+    with moe_recorded(prefill_drops):
+        prefill_ms, (logits, caches) = host_ms(
+            lambda: lm.prefill(params, cfg, prompt, GEN_CACHE), n=3)
+    if logits.shape != (GEN_BATCH, cfg.vocab) or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"lm_moe {arch}: prefill gave shape {tuple(logits.shape)} or non-finite logits")
+    prefill_drops = prefill_drops[-cfg.n_layers:]            # the last call's layers
+    plain_caches, lib_caches = copy_caches(caches), copy_caches(caches)
+    step_ms, agree, lib_agree, per_step, decode_drops = [], [], [], [], []
+    for i in range(steps):
+        tok = toks[:, GEN_PROMPT + i]
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with moe_recorded(decode_drops):
+            got, caches = lm.decode_step(params, cfg, tok, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in KERNELS})
+        with attention_as(ref.decode_attention):
+            want, plain_caches = lm.decode_step(params, cfg, tok, plain_caches)
+        with attention_as(library_decode):
+            lib, lib_caches = lm.decode_step(params, cfg, tok, lib_caches)
+        agree.append(logits_against(f"lm_moe {arch} step {i}", got, want))
+        lib_agree.append(logits_against(f"lm_moe {arch} library step {i}", lib, want))
+    launches = ops.launch_counts()
+    del lib_caches, plain_caches
+    last = [dict(c, pos=c["pos"] - 1) for c in caches]        # rewound: the write repeats
+    k4_errs = []
+    with attention_as(checked(k4_errs)):
+        lm.decode_step(params, cfg, toks[:, -1], last)
+    with attention_as(zero_attention):
+        zeroed, _ = lm.decode_step(params, cfg, toks[:, -1], last)
+    control = logits_against(f"lm_moe {arch} zeroed attention", zeroed, want)
+    # the dispatch reads nothing back to the host, so the step captures
+    graph_ms = device_ms(lambda i: lm.decode_step(params, cfg, toks[:, -1], last), n_iter=1)
+    decode_ms = statistics.median(step_ms[1:])
+    res = {"arch": arch, "dtype": cfg.dtype, "params": cfg.param_count,
+           "active_params": cfg.active_param_count, "layers": cfg.n_layers,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+           "experts": cfg.n_experts, "top_k": cfg.top_k, "batch": GEN_BATCH,
+           "prompt": GEN_PROMPT, "cache_slots": GEN_CACHE, "steps": steps,
+           "capacity_prefill": moe_lib.moe_capacity(GEN_BATCH * GEN_PROMPT, cfg.n_experts,
+                                                    cfg.top_k),
+           "capacity_decode": moe_lib.moe_capacity(GEN_BATCH, cfg.n_experts, cfg.top_k),
+           "dropped_frac_prefill": mean_drop(prefill_drops),
+           "dropped_frac_decode": mean_drop(decode_drops),
+           "dropped_frac_decode_max": float(torch.stack(decode_drops).max()),
+           "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": GEN_BATCH * GEN_PROMPT / prefill_ms * 1e3,
+           "decode_ms_per_step": decode_ms, "decode_ms_first_step": step_ms[0],
+           "decode_tokens_per_s": GEN_BATCH / decode_ms * 1e3,
+           "decode_device_ms_per_step_graph": graph_ms,
+           "logits_l2_rel_err_vs_plain": [a["l2_rel"] for a in agree],
+           "library_logits_l2_rel_err_vs_plain": [a["l2_rel"] for a in lib_agree],
+           "top1_agreement": statistics.mean(a["top1"] for a in agree),
+           "library_top1_agreement": statistics.mean(a["top1"] for a in lib_agree),
+           "zeroed_attention_vs_plain": control,
+           "logits_l2_tol": LOGITS_L2_TOL,
+           "k4_calls_checked": len(k4_errs), "k4_max_abs_err_in_model": max(k4_errs),
+           "k4": k4, "held_before_bytes": held,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_per_step": per_step[0]}
+    del params, caches, last
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_moe_run", **res})                  # the distances, before the gates
+    check_moe_launches(arch, cfg, per_step, launches)
+    if len(k4_errs) != cfg.n_layers:
+        fail(f"lm_moe {arch}: {len(k4_errs)} K4 calls checked in a step of {cfg.n_layers} layers")
+    gate_logits(f"lm_moe {arch}", max(agree, key=lambda a: a["l2_rel"]), control)
+    return res
+
+
+def lm_moe(seed: int, dev, gen) -> dict:
+    """granite-moe-1b-a400m, then qwen3-moe-30b-a3b, each freeing what it
+    holds before the next."""
+    t0 = time.monotonic()
+    runs = [lm_moe_run(seed, dev, gen, arch) for arch in MOE_STEPS]
+    return {"phase": "lm_moe", "runs": runs, "seconds": time.monotonic() - t0,
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in KERNELS}}
+
+
+# ----------------------------------------------------------------------- remote
+
+
+def compute_apps() -> str:
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=30).stdout
+
+
+def card_memory_mib() -> int:
+    """The card's memory in use, MiB, by nvidia-smi: every process's."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30).stdout
+    return int(out.split()[0])                             # one card: its line
+
+
+def parse_compute_apps(smi: str) -> list[tuple[int, str]]:
+    """(pid, used memory) of each process ``nvidia-smi --query-compute-apps=
+    pid,used_memory --format=csv,noheader`` lists as holding the card."""
+    rows = []
+    for line in smi.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) >= 2 and parts[0].isdigit():
+            rows.append((int(parts[0]), parts[1]))
+    return rows
+
+
+def device_files(pid: int) -> list[str]:
+    """The device files under /dev/nvidia* that process ``pid`` holds open."""
+    fd_dir = Path(f"/proc/{pid}/fd")
+    out = []
+    for fd in fd_dir.iterdir():
+        with contextlib.suppress(OSError):
+            target = os.readlink(fd)
+            if target.startswith("/dev/nvidia"):
+                out.append(target)
+    return sorted(set(out))
+
+
+def workers_on_the_card(pids: list[int], own_pid: int, before: str, during: str,
+                        after: str, files: dict[int, list[str]],
+                        memory_mib: tuple[int, int]) -> dict:
+    """The card's own account that each worker holds it, from nvidia-smi's
+    compute apps before the workers booted, while they serve and after they
+    are gone.  Where nvidia-smi reports this process's own pid (one pid
+    namespace), every worker's pid must be listed.  In a container with a
+    pid namespace of its own nvidia-smi cannot name the container's pids
+    (it lists another pid for every process): then the list must grow by
+    exactly the workers while they serve and shrink back after, and each
+    worker must hold a card's device file (/dev/nvidiaN) open.  A worker's
+    device memory is then its share of what the card's use grew by while
+    they serve (``memory_mib``, before and during): the per-app figures of
+    a namespace that hides the pids are not the apps'."""
+    b, d, a = (parse_compute_apps(x) for x in (before, during, after))
+    listed = [pid for pid, _ in d]
+    res = {"compute_apps_before": b, "compute_apps_during": d, "compute_apps_after": a,
+           "device_files": {str(p): files.get(p, []) for p in pids}}
+    if own_pid in listed:
+        missing = [p for p in pids if p not in listed]
+        if missing:
+            fail(f"remote: worker pids {missing} are not among nvidia-smi's compute apps "
+                 f"{sorted(set(listed))}")
+        return {**res, "pids_listed": True,
+                "device_memory": {str(p): m for p, m in d if p in pids}}
+    if len(d) - len(b) != len(pids) or len(a) != len(b):
+        fail(f"remote: nvidia-smi lists {len(b)} compute apps before the {len(pids)} workers, "
+             f"{len(d)} while they serve and {len(a)} after: not one more a worker")
+    off = [p for p in pids if not any(f[len("/dev/nvidia"):].isdigit() for f in files.get(p, []))]
+    if off:
+        fail(f"remote: workers {off} hold no card's device file open ({res['device_files']})")
+    return {**res, "pids_listed": False,
+            "device_memory_mib_each": (memory_mib[1] - memory_mib[0]) / len(pids)}
+
+
+def check_remote_run(what: str, r, offered: int, killed: bool) -> None:
+    """Every offered query served once, none dropped or errored; after a
+    kill, some of the victim's queries re-routed."""
+    if r.n_queries != offered or r.dropped or r.errors:
+        fail(f"remote {what}: {r.n_queries} of {offered} queries served, "
+             f"{r.dropped} dropped, {r.errors} errored")
+    if killed and not r.rerouted:
+        fail(f"remote {what}: the killed worker's queries were not re-routed")
+
+
+def node_stats(backends) -> list[dict]:
+    """Per node of a run: queries served, their QPS over the node's span
+    (first arrival to last completion), p50 and p95 in ms."""
+    rows = []
+    for b in backends:
+        recs = b.completed_records()
+        lat = np.array([r.t_done - r.t_arrival for r in recs]) * 1e3
+        span = (max(r.t_done for r in recs) - min(r.t_arrival for r in recs)) if recs else 0.0
+        rows.append({"node": f"{b.pool}[{b.index_in_pool}]", "queries": len(recs),
+                     "qps": len(recs) / span if span > 0 else 0.0,
+                     "p50_ms": float(np.percentile(lat, 50)) if recs else None,
+                     "p95_ms": float(np.percentile(lat, 95)) if recs else None})
+    return rows
+
+
+def remote_trace(rng, rate: float, kill_t: float | None):
+    """REMOTE_HORIZON_S of production-sized queries at ``rate``; with a kill,
+    a quarter of them in a flash crowd just before it, so that the victim
+    dies holding a queue (examples/remote_fleet.py's trace)."""
+    n = int(rate * REMOTE_HORIZON_S)
+    sizes = SizeDist("production", max_size=REMOTE_MAX_BUCKET).sample(rng, n)
+    if kill_t is None:
+        return np.sort(rng.uniform(0.0, REMOTE_HORIZON_S, n)), sizes
+    n_burst = n // 4
+    times = np.sort(np.concatenate([
+        rng.uniform(0.0, REMOTE_HORIZON_S, n - n_burst),
+        rng.uniform(kill_t - 0.03 * REMOTE_HORIZON_S, kill_t - 1e-3, n_burst)]))
+    return times, sizes
+
+
+def remote(seed: int) -> dict:
+    """Two card workers behind the supervisor: boot and calibrate in
+    lockstep, prove with nvidia-smi that they hold the card, serve a clean
+    trace, then one with a SIGKILL mid-run; every worker gone at the end."""
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(seed)
+    clock = WallClock()
+    spawned = []
+    before, mem_before = compute_apps(), card_memory_mib()
+    with WorkerSupervisor() as sup:                       # workers on the card
+        fleet = boot_remote_fleet(REMOTE_MODEL, REMOTE_NODES, supervisor=sup,
+                                  batch_size=REMOTE_MAX_BUCKET, max_bucket=REMOTE_MAX_BUCKET,
+                                  burst=16, reps=3, clock=clock)
+        spawned = [b.handle for b in fleet]
+        pids = [h.pid for h in spawned]
+        devices = [sup.ping(h)["device"] for h in spawned]
+        if devices != ["cuda"] * REMOTE_NODES:
+            fail(f"remote: workers report devices {devices}, not the card")
+        during, mem_during = compute_apps(), card_memory_mib()
+        files = {p: device_files(p) for p in pids}
+        boot_s = fleet[0].spec.boot_s
+        b64_s = max(b.spec.cpu.latency(REMOTE_MAX_BUCKET) for b in fleet)
+        rate = REMOTE_NODES * REMOTE_LOAD / b64_s
+        runs = {}
+        for what, kill_t in (("clean", None), ("sigkill", 0.5 * REMOTE_HORIZON_S)):
+            times, sizes = remote_trace(rng, rate, kill_t)
+            clock.origin = None                           # a fresh trace, a fresh anchor
+            for b in fleet:
+                b.reset_run()
+            faults = FleetFaults(kills=(NodeKill(kill_t, "remote", 0),)) if kill_t else None
+            r = drive_fleet(times, sizes, fleet, make_router("least_outstanding"),
+                            window_s=REMOTE_HORIZON_S / 8, fleet_faults=faults,
+                            drain_timeout=30)
+            check_remote_run(what, r, len(times), killed=kill_t is not None)
+            runs[what] = {"queries": len(times), "offered_qps": rate, "qps": r.qps,
+                          "p50_ms": r.p50_ms, "p95_ms": r.p95_ms, "p99_ms": r.p99_ms,
+                          "rerouted": r.rerouted, "dropped": r.dropped, "errors": r.errors,
+                          "nodes": node_stats(fleet)}
+        victim = fleet[0].handle
+        if victim.proc.returncode != -9:
+            fail(f"remote: the victim exited with {victim.proc.returncode}, not SIGKILL")
+        reaped = [h.pid for h in sup.reap()]
+        if reaped != [victim.pid]:
+            fail(f"remote: the supervisor reaped {reaped}, expected [{victim.pid}]")
+        for b in fleet:
+            b.close()
+    alive = [h.pid for h in spawned if h.proc.poll() is None]
+    if alive:
+        fail(f"remote: workers {alive} outlived the phase")
+    after = compute_apps()
+    for _ in range(50):                 # a process's context is let go within moments
+        if len(parse_compute_apps(after)) <= len(parse_compute_apps(before)):
+            break
+        time.sleep(0.1)
+        after = compute_apps()
+    card = workers_on_the_card(pids, os.getpid(), before, during, after, files,
+                               (mem_before, mem_during))
+    seconds = time.monotonic() - t_phase
+    if seconds > REMOTE_SECONDS:
+        fail(f"remote: the phase took {seconds:.1f} s, past its {REMOTE_SECONDS:.0f} s")
+    return {"phase": "remote", "model": REMOTE_MODEL, "workers": REMOTE_NODES, "pids": pids,
+            "devices": devices, "on_the_card": card,
+            "boot_and_calibrate_s": boot_s, "calibrated_ms": {
+                str(k): [b.spec.cpu.latency(k) * 1e3 for b in fleet]
+                for k in (1, 8, REMOTE_MAX_BUCKET)},
+            "runs": runs, "victim_returncode": victim.proc.returncode, "reaped": reaped,
+            "seconds": seconds}
+
+
 # ------------------------------------------------------------------------- main
 
 
@@ -2270,7 +2636,7 @@ def train_lm(seed: int, dev, gen) -> dict:
     b0 = batches[0]
     with torch.no_grad():
         chunked = float(lm.loss_fn(params, cfg, b0))
-        hidden = lm.forward_hidden(params, cfg, b0["tokens"])
+        hidden, _ = lm.forward_hidden(params, cfg, b0["tokens"])
         whole = float(lm._chunk_nll(params, cfg, hidden, b0["labels"])) / hidden.shape[:2].numel()
         del hidden
     compare("train_lm chunked loss vs whole", torch.tensor(chunked), torch.tensor(whole),
@@ -2308,22 +2674,27 @@ def train_phase(seed: int, dev, gen) -> dict:
     return line
 
 
+# the phases ``--only`` runs alone: (args, device, generator) -> its line
+ONLY = {
+    "train": lambda args, dev, gen: train_phase(args.seed, dev, gen),
+    "lm_moe": lambda args, dev, gen: lm_moe(args.seed, dev, gen),
+    "remote": lambda args, dev, gen: remote(args.seed),
+    "k2_timings": lambda args, dev, gen: {
+        "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
+    "k4_timings": lambda args, dev, gen: {
+        "phase": "k4_timings",
+        "timings": time_decode_attentions(args.seed, gen, dev, other_runs=True)},
+}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--qps", type=float, default=100.0, help="offered load of the serve phases")
     ap.add_argument("--seconds", type=float, default=4.0, help="length of each serve phase")
-    ap.add_argument("--k2-timings", action="store_true",
-                    help="only time K2 at the DLRM shapes, print that line and stop (no "
-                         "result line): to time another tree's K2, run a copy of this "
-                         "script from that tree's root")
-    ap.add_argument("--train-only", action="store_true",
-                    help="only check the backward kernels and run the train phase, print its "
-                         "line and stop (no result line)")
-    ap.add_argument("--k4-timings", action="store_true",
-                    help="only time K4 at its four shapes (with other run lengths beside "
-                         "the plan's), print that line and stop (no result line); a copy "
-                         "of this script times another tree's K4 the same way")
+    ap.add_argument("--only", choices=sorted(ONLY),
+                    help="only run this phase, print its line and stop (no result line); "
+                         "a copy of this script times another tree's K2 or K4 the same way")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2341,17 +2712,16 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    if args.k2_timings:
-        emit({"phase": "k2_timings", "card": card,
-              "timings": time_dot_interactions(gen, dev, other_store=False)})
+    if args.only:
+        emit({**ONLY[args.only](args, dev, gen), "card": card})
         return
-    if args.k4_timings:
-        emit({"phase": "k4_timings", "card": card,
-              "timings": time_decode_attentions(args.seed, gen, dev, other_runs=True)})
-        return
-    if args.train_only:
-        emit({**train_phase(args.seed, dev, gen), "card": card})
-        return
+    held = {}                     # device memory still allocated after each phase
+
+    def after(line: dict) -> None:
+        line["card"] = card
+        emit(line)
+        torch.cuda.empty_cache()
+        held[line["phase"]] = torch.cuda.memory_allocated()
     cfg = PAPER_MODELS[SERVE_ARCH]
     params = recsys.init(gen, cfg, device=dev)           # 40 x 10^6 x 32 float32 on the card
     tables = params["tables"]
@@ -2375,24 +2745,22 @@ def main() -> None:
     da_times = time_decode_attentions(args.seed, gen, dev)
     da_main = da_times[0]                                # decode_32k, pos = T
     da_err = max([da_err] + [t["max_abs_err_vs_plain"] for t in da_times])
-    emit({"phase": "kernel_checks", "card": card,
+    after({"phase": "kernel_checks",
           "embedding_bag": {"checks": eb_checks, "timings_rmc2": eb_times,
                             "timings_xdeepfm": eb_times_xdfm},
           "dot_interaction": {"checks": ix_checks, "timings_rmc2_rmc1": ix_times},
           "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times},
           "decode_attention": {"checks": da_checks, "timings_qwen2": da_times}})
 
-    emit({"phase": "parity", "rtol": 1e-4, "atol": 1e-4,
-          "configs": check_parity(args.seed, dev)})
+    after({"phase": "parity", "rtol": 1e-4, "atol": 1e-4,
+           "configs": check_parity(args.seed, dev)})
 
     served = serve(args.seed, dev, params, cfg, qps=args.qps, seconds=args.seconds,
                    batch_size=64, sla_ms=SLA_TARGETS[SERVE_ARCH].medium_ms, curve=True)
-    served["card"] = card
-    emit(served)
+    after(served)
 
     scheduled = sched(args.seed, dev)
-    scheduled["card"] = card
-    emit(scheduled)
+    after(scheduled)
 
     # RMC2 live against its twin, at the knob the sched phase just tuned
     # with the card and beside the card curve it measured; then everything
@@ -2400,42 +2768,46 @@ def main() -> None:
     row = next(r for r in scheduled["models"] if r["arch"] == SERVE_ARCH)
     card_curve = TableDeviceModel(list(BUCKETS), [row["card_ms"][b] / 1e3 for b in BUCKETS])
     lived = live(args.seed, dev, params, cfg, row["with_card"]["batch"], card_curve)
-    lived["card"] = card
-    emit(lived)
+    after(lived)
     del params, tables
     torch.cuda.empty_cache()
 
     zoo_line, xdfm_params = zoo(args.seed, dev, gen)
-    zoo_line["card"] = card
-    emit(zoo_line)
+    after(zoo_line)
 
     # neither package gives xDeepFM an SLA target: a fixed batch size of
     # serve_p99's 512 and no controller
     served_x = serve(args.seed, dev, xdfm_params, xdfm, qps=args.qps, seconds=args.seconds,
                      batch_size=configs.RECSYS_SHAPES["serve_p99"].batch)
-    served_x["card"] = card
-    emit(served_x)
+    after(served_x)
     del xdfm_params
     torch.cuda.empty_cache()
 
     # before the LM serving phases, and freeing all it holds: lm_decode_32k
     # needs 58 GB of the card
     trained = train_phase(args.seed, dev, gen)
-    trained["card"] = card
-    emit(trained)
+    after(trained)
 
     generated = lm_generate(args.seed, dev, gen)
-    generated["card"] = card
-    emit(generated)
+    after(generated)
 
-    # last, with the earlier phases' tensors freed: 51.5 GB of KV cache
+    # with the earlier phases' tensors freed: 51.5 GB of KV cache
     decoded = lm_decode_32k(args.seed, dev, gen)
-    decoded["card"] = card
-    emit(decoded)
+    after(decoded)
+
+    # the MoE LMs last but one: qwen3-moe's 61 GB of weights need the card
+    # freed of every earlier phase's tensors; the device memory each phase
+    # left allocated is reported beside it
+    moe_line = lm_moe(args.seed, dev, gen)
+    moe_line["held_after_phase_bytes"] = dict(held)
+    after(moe_line)
+
+    remoted = remote(args.seed)
+    after(remoted)
 
     paths = (served["launches"], scheduled["launches"], lived["launches"], zoo_line["launches"],
              served_x["launches"], trained["launches"], generated["launches"],
-             decoded["launches"])
+             decoded["launches"], moe_line["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times
@@ -2549,7 +2921,21 @@ def main() -> None:
              "run_slots": t["run_slots"],
              "shape": f"q ({t['batch']}, {qwen.n_heads}, {qwen.hd}), k/v ({t['batch']}, "
                       f"{t['slots']}, {qwen.n_kv_heads}, {qwen.hd}) bfloat16, pos = {t['pos']}"}
-            for t in da_times[1:]}},
+            for t in da_times[1:]},
+         # the MoE LMs' decode steps, at their own heads
+         **{f"lm_moe {r['arch']}": {
+             "launches": r["launches"]["decode_attention"],
+             "ms": r["k4"]["kernel_ms"], "call_ms": r["k4"]["kernel_call_ms"],
+             "main_ms": r["k4"]["main_ms"], "combine_ms": r["k4"]["combine_ms"],
+             "plain_ms": r["k4"]["plain_ms"], "bound_ms": r["k4"]["bound_ms"],
+             "bound_by": r["k4"]["bound_by"], "library_ms": r["k4"]["library_ms"],
+             "share_of_bound": r["k4"]["share_of_bound"], "run_slots": r["k4"]["run_slots"],
+             "max_abs_err": max(r["k4_max_abs_err_in_model"],
+                                r["k4"]["max_abs_err_vs_plain"]),
+             "shape": f"q ({GEN_BATCH}, {r['heads'][0]}, {r['heads'][2]}), k/v ({GEN_BATCH}, "
+                      f"{GEN_CACHE}, {r['heads'][1]}, {r['heads'][2]}) bfloat16, "
+                      f"pos = {r['k4']['pos']}"}
+            for r in moe_line["runs"]}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

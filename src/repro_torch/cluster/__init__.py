@@ -10,6 +10,11 @@ hundreds of machines", validated against real execution).
   per-node online controllers) behind the same contract, with
   device-curve calibration through the runtime to close the sim-vs-real
   loop.
+* ``remote`` — ``RemoteNodeBackend``: worker *processes* over localhost
+  sockets (``serve.remote`` wire protocol) behind the same contract, plus
+  the ``WorkerSupervisor`` that spawns, health-checks, and reaps them —
+  real multi-core serving, real ``SIGKILL`` faults, measured boot times;
+  each worker serves on the card unless the supervisor is told the CPU.
 * ``fleet`` — ``NodeSpec``/``Pool``/``Fleet``: mixed CPU generations and
   accelerator nodes, each pool with its own DeepRecSched knobs.
 * ``router`` — pluggable, backend-agnostic query-routing policies
@@ -42,10 +47,10 @@ hundreds of machines", validated against real execution).
   enabled); ``OffloadTuning`` turns on the per-node online
   offload-threshold controller.
 
-The port's copy of the JAX package's ``repro.cluster``, without its remote
-tier (worker processes over sockets).  Every module but ``live`` is a
-copy, equal to the reference on the same inputs; ``live`` binds the
-backend to the port's ``ServingRuntime``.
+The port's copy of the JAX package's ``repro.cluster``.  Every module but
+``live`` and ``remote`` is a copy, equal to the reference on the same
+inputs; ``live`` binds the backend to the port's ``ServingRuntime``, and
+``remote`` spawns the port's workers (``repro_torch.serve.remote``).
 """
 from repro_torch.cluster.autoscaler import (Autoscaler,  # noqa: F401
                                             CapacityLedger, DiagnosisPolicy,
@@ -68,6 +73,11 @@ from repro_torch.cluster.fleet import (Fleet, NodeSpec, Pool,  # noqa: F401
 from repro_torch.cluster.live import (BucketedDeviceModel,  # noqa: F401
                                       LiveNodeBackend, WallClock, calibrate_device,
                                       live_node)
+from repro_torch.cluster.remote import (BootingRemoteBackend,  # noqa: F401
+                                        RemoteBackendFactory, RemoteNodeBackend,
+                                        RestartPolicy, WorkerCrashed,
+                                        WorkerSupervisor, boot_remote_fleet,
+                                        remote_node)
 from repro_torch.cluster.router import (HeterogeneityAwareRouter,  # noqa: F401
                                         LeastOutstandingRouter, RoundRobinRouter,
                                         Router, SizeAwareRouter, make_router)

@@ -21,11 +21,10 @@ healed fleet survives this exact crash storm":
 Kills flow through the lifecycle controller exactly as plain
 ``FleetFaults`` kills do.  Hangs and garbles are *injections*: at each
 window boundary the controller delivers the due ones to the target
-backend's ``inject_chaos`` hook — a remote backend (the JAX package's
-``repro.cluster.remote``; the port has none yet) arms the fault in the
+backend's ``inject_chaos`` hook — remote backends arm the fault in the
 worker over the wire; sim and live backends have no such hook and
 silently ignore them (there is no transport to fault).  Slow starts are
-consumed by a remote backend factory at spawn time.
+consumed by ``RemoteBackendFactory`` at spawn time.
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ initialise in JAX, turn every leaf into numpy
 they are: a linear layer's ``w`` stays ``(d_in, d_out)`` and is applied as
 ``x @ w``.  An LM tree whose layers are stacked (the JAX package's
 ``scan_layers=True``: ``layers`` is one dictionary whose every leaf has a
-leading L axis) becomes the port's list of L layer dictionaries.
+leading L axis) becomes the port's list of L layer dictionaries; an MoE
+layer's ``moe`` subtree (``router``/``wg``/``wu``/``wd``, the expert stacks
+(E, d, f) under the L axis) is unstacked with the rest.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Config registry of the port: the eight DeepRecInfra paper models, the
-rest of the recsys zoo (xDeepFM, AutoInt, MIND, BERT4Rec) and the three
-dense LMs (qwen2-0.5b, phi3-mini-3.8b, yi-34b), with the input shapes of
+rest of the recsys zoo (xDeepFM, AutoInt, MIND, BERT4Rec), the three
+dense LMs (qwen2-0.5b, phi3-mini-3.8b, yi-34b) and the two mixture-of-experts
+LMs (granite-moe-1b-a400m, qwen3-moe-30b-a3b), with the input shapes of
 each family (``RECSYS_SHAPES``, ``LM_SHAPES``).
 
 ``--arch <id>`` in the port's entry points resolves through ``get``.
@@ -8,10 +9,12 @@ each family (``RECSYS_SHAPES``, ``LM_SHAPES``).
 from repro_torch.configs import (  # noqa: F401 — registration side effects
     autoint,
     bert4rec,
+    granite_moe_1b_a400m,
     mind,
     paper_models,
     phi3_mini_3_8b,
     qwen2_0_5b,
+    qwen3_moe_30b_a3b,
     xdeepfm,
     yi_34b,
 )

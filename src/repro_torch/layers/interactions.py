@@ -156,8 +156,10 @@ def capsule_routing(params, history: torch.Tensor, *, n_interests: int, n_iters:
     The routing softmax runs over the *interest* axis (dim 1), in float32.
     A masked position gets ``-1e9`` added to its logits for every interest;
     in float32 that swamps the logits, so its weight is ``1/K`` for each
-    interest, as in the reference.  (Inference only: the reference's
-    stop-gradient on ``caps`` has no counterpart here.)"""
+    interest, as in the reference.  The logit update sees ``caps``
+    detached, the reference's stop-gradient: the gradient reaches ``S``
+    and the history through the capsules, not through the routing
+    logits."""
     b, t, d = history.shape
     u = history @ params["s"]                                        # (B, T, D)
     logits = torch.zeros((b, n_interests, t), dtype=torch.float32, device=history.device)
@@ -168,5 +170,5 @@ def capsule_routing(params, history: torch.Tensor, *, n_interests: int, n_iters:
     for _ in range(n_iters):
         w = torch.softmax(logits + neg, dim=1).to(u.dtype)           # over interests
         caps = _squash(torch.einsum("bkt,btd->bkd", w, u))
-        logits = logits + torch.einsum("bkd,btd->bkt", caps, u).float()
+        logits = logits + torch.einsum("bkd,btd->bkt", caps.detach(), u).float()
     return caps

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM: the dense configs (qwen2, phi3, yi), GQA +
-RoPE + RMSNorm + SwiGLU.
+"""Decoder-only transformer LM: the dense configs (qwen2, phi3, yi) and the
+mixture-of-experts ones (granite-moe, qwen3-moe, top-8), GQA + RoPE +
+RMSNorm + SwiGLU (a SwiGLU expert stack, ``layers.moe``, in the MoE ones).
 
 Entry points:
     forward(params, cfg, tokens)                  logits of a full sequence
@@ -14,8 +15,9 @@ attention through ``kernels.ops.decode_attention``: on the GPU the
 hand-written kernel K4, once per layer per step.  The caches are updated in
 place (see ``layers.attention.decode_attention``).
 
-MoE configs (``n_experts > 0``) raise ``NotImplementedError``:
-``layers/moe.py`` is still to be ported.  Training runs no hand-written
+An MoE layer routes the tokens of each call with the reference's
+capacity, so for an MoE config prefill then decode is not a forward of
+the whole sequence (``layers.moe``).  Training runs no hand-written
 kernel: ``forward_hidden``'s attention is plain tensor code.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers.mlp import ffn_swiglu, init_ffn_swiglu, init_linear, linear
 from repro_torch.layers.norms import init_rms_norm, rms_norm
 
@@ -80,18 +83,10 @@ class LMConfig:
         return self.param_count - self.n_layers * inactive
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a mixture-of-experts config: layers/moe.py is still to be "
-            f"ported to repro_torch")
-
-
 def init(generator: torch.Generator, cfg: LMConfig, *,
          device: torch.device | str | None = None):
     """Random parameters on ``device`` (the GPU unless the caller passes
     one); ``generator`` must live on the same device."""
-    _dense_only(cfg)
     device = resolve(device)
     dt = cfg.tdtype
     kw = dict(dtype=dt, device=device)
@@ -101,14 +96,19 @@ def init(generator: torch.Generator, cfg: LMConfig, *,
     if not cfg.tie_embeddings:
         p["unembed"] = init_linear(generator, cfg.d_model, cfg.vocab, bias=False, **kw)
     for _ in range(cfg.n_layers):
-        p["layers"].append({
+        layer = {
             "ln1": init_rms_norm(cfg.d_model, **kw),
             "attn": attn_lib.init_attention(generator, cfg.d_model, cfg.n_heads,
                                             cfg.n_kv_heads, cfg.hd, qkv_bias=cfg.qkv_bias,
                                             **kw),
             "ln2": init_rms_norm(cfg.d_model, **kw),
-            "ffn": init_ffn_swiglu(generator, cfg.d_model, cfg.d_ff, **kw),
-        })
+        }
+        if cfg.is_moe:
+            layer["moe"] = moe_lib.init_moe(generator, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                            cfg.top_k, **kw)
+        else:
+            layer["ffn"] = init_ffn_swiglu(generator, cfg.d_model, cfg.d_ff, **kw)
+        p["layers"].append(layer)
     return p
 
 
@@ -122,22 +122,37 @@ def _unembed(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return linear(params["unembed"], x)
 
 
-def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int → final hidden state (B, S, d_model)."""
-    _dense_only(cfg)
+def _ffn(layer, cfg: LMConfig, x: torch.Tensor):
+    """The layer's feed-forward block on x (B, S, d): (output, MoE aux loss
+    or None for a dense layer)."""
+    if cfg.is_moe:
+        y, aux = moe_lib.apply_moe(layer["moe"], x, top_k=cfg.top_k)
+        return y, aux["aux_loss"]
+    return ffn_swiglu(layer["ffn"], x), None
+
+
+def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens (B, S) int → (final hidden state (B, S, d_model), the sum of
+    the MoE layers' auxiliary losses, a float32 scalar: 0 for a dense
+    config)."""
     x = params["embed"][tokens.long()]
     freqs = _freqs(cfg, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         x = x + attn_lib.attention(layer["attn"], rms_norm(layer["ln1"], x),
                                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                                    head_dim=cfg.hd, causal=True, freqs=freqs)
-        x = x + ffn_swiglu(layer["ffn"], rms_norm(layer["ln2"], x))
-    return rms_norm(params["ln_f"], x)
+        f, aux = _ffn(layer, cfg, rms_norm(layer["ln2"], x))
+        x = x + f
+        if aux is not None:
+            aux_total = aux_total + aux
+    return rms_norm(params["ln_f"], x), aux_total
 
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int → logits (B, S, V)."""
-    return _unembed(params, cfg, forward_hidden(params, cfg, tokens))
+    """tokens (B, S) int → logits (B, S, V) (the reference's ``forward``
+    also returns the MoE auxiliary loss sum: ``forward_hidden`` has it)."""
+    return _unembed(params, cfg, forward_hidden(params, cfg, tokens)[0])
 
 
 _LOSS_CHUNK = 512       # sequence chunk of the cross-entropy (big-vocab memory)
@@ -151,22 +166,23 @@ def _chunk_nll(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor) -> 
 
 def loss_fn(params, cfg: LMConfig, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (B, S), logits in float32.  When S is a multiple of
-    ``_LOSS_CHUNK`` and longer than it, the unembedding and log-softmax run
-    one chunk of the sequence at a time, each under activation
-    checkpointing (the reference's ``jax.checkpoint``): peak logits memory
-    is (B, chunk, V), and the backward recomputes each chunk's logits.
-    Dense models only, so the reference's MoE auxiliary term is 0."""
+    ``batch["labels"]`` (B, S), logits in float32, plus 0.01 times the MoE
+    layers' auxiliary loss sum (0 for a dense config).  When S is a
+    multiple of ``_LOSS_CHUNK`` and longer than it, the unembedding and
+    log-softmax run one chunk of the sequence at a time, each under
+    activation checkpointing (the reference's ``jax.checkpoint``): peak
+    logits memory is (B, chunk, V), and the backward recomputes each
+    chunk's logits."""
     tokens, labels = batch["tokens"], batch["labels"]
-    x = forward_hidden(params, cfg, tokens)
+    x, aux = forward_hidden(params, cfg, tokens)
     b, s, _ = x.shape
     if s % _LOSS_CHUNK != 0 or s <= _LOSS_CHUNK:
-        return _chunk_nll(params, cfg, x, labels) / (b * s)
+        return _chunk_nll(params, cfg, x, labels) / (b * s) + 0.01 * aux
     total = x.new_zeros((), dtype=torch.float32)
     for i in range(0, s, _LOSS_CHUNK):
         total = total + checkpoint(_chunk_nll, params, cfg, x[:, i:i + _LOSS_CHUNK],
                                    labels[:, i:i + _LOSS_CHUNK], use_reentrant=False)
-    return total / (b * s)
+    return total / (b * s) + 0.01 * aux
 
 
 # ---------------------------------------------------------------- serving
@@ -195,13 +211,12 @@ def _prefill_layer(layer, cfg: LMConfig, x: torch.Tensor, freqs: torch.Tensor, c
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     x = x + linear(layer["attn"]["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
-    return x + ffn_swiglu(layer["ffn"], rms_norm(layer["ln2"], x))
+    return x + _ffn(layer, cfg, rms_norm(layer["ln2"], x))[0]
 
 
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int):
     """Run the prompt tokens (B, S), fill fresh KV caches of ``max_len``
     slots; returns (last-token logits (B, V), caches with pos = S)."""
-    _dense_only(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit caches of {max_len} slots")
@@ -219,7 +234,6 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict]):
     """token (B,) int → (logits (B, V), caches).  One decode step; each
     layer's new K/V are written in place into ``caches`` (the list
     returned holds the same tensors, with ``pos`` advanced by one)."""
-    _dense_only(cfg)
     x = params["embed"][token.long()][:, None]                       # (B, 1, D)
     freqs = _freqs(cfg, x.device)
     new_caches = []
@@ -228,7 +242,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict]):
             layer["attn"], rms_norm(layer["ln1"], x), cache, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, freqs=freqs)
         x = x + h
-        x = x + ffn_swiglu(layer["ffn"], rms_norm(layer["ln2"], x))
+        x = x + _ffn(layer, cfg, rms_norm(layer["ln2"], x))[0]
         new_caches.append(cache)
     x = rms_norm(params["ln_f"], x)
     return _unembed(params, cfg, x)[:, 0], new_caches

@@ -7,9 +7,10 @@ stamps from whichever engine served each query), the
 latency, error / re-route / retry counters), and the
 :class:`FleetTimeline` of per-window registry snapshots.  See the module
 docstrings of ``spans``/``metrics``/``attribution``/``export`` for the
-individual layers.  The port's copy of the JAX package's ``repro.obs``
-(without its ``dump``/``report`` CLIs): numpy only, equal to it on the same
-inputs.
+individual layers, and ``python -m repro_torch.obs.dump`` (the run) and
+``python -m repro_torch.obs.report`` (its incidents) for the artifact's
+CLIs.  The port's copy of the JAX package's ``repro.obs``: numpy only,
+equal to it on the same inputs.
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ artifact: one ``run`` summary line, one ``window`` line per
 ``stage_totals``, and per-node ``node`` lines (errors, query counts).
 Runs that carried an SLO engine (``drive_fleet(slo=...)``) additionally
 get ``slo_objective`` / ``alert`` / ``diagnosis`` / ``action`` /
-``incident`` lines.  The artifact is line for line the JAX package's, so
-its ``python -m repro.obs.report`` and ``python -m repro.obs.dump`` CLIs
-read it (the port has no copy of them yet).
+``incident`` lines — ``python -m repro_torch.obs.report`` renders per-incident
+postmortems from those, and ``python -m repro_torch.obs.dump`` pretty-prints
+the rest of the artifact back.  The artifact is line for line the JAX
+package's, so either package's CLIs read it.
 
 ``to_prometheus(registry)`` renders a :class:`MetricsRegistry` in the
 Prometheus text exposition format (counters / gauges verbatim,

@@ -77,6 +77,8 @@ def test_library_decode_is_the_plain_function(b, hq, hkv, d, t):
     (0.02, 1.2, True),       # bf16 noise, zeroed attention far off: as read on the card
     (0.2, 1.2, False),       # the kernel path's logits too far from the plain path's
     (0.02, 0.05, False),     # a zeroed attention the gate would not see
+    (0.069, 1.419, True),    # an MoE LM's worst step, routing flips included: as read on the card
+    (0.069, 0.09, False),    # ... with a zeroed attention the gate would not see
 ])
 def test_logits_gate(kernel_l2, control_l2, passes):
     run = lambda: chip_smoke.gate_logits("step", {"l2_rel": kernel_l2}, {"l2_rel": control_l2})
@@ -269,3 +271,93 @@ def test_train_launch_check_refuses_an_off_by_one_count(off):
     with pytest.raises(SystemExit, match="launched"):
         chip_smoke.expect_train_launches("run", dict(good, embedding_bag_backward=steps + off),
                                          steps)
+
+
+# ----------------------------------------------------------- the lm_moe gates
+
+
+def _moe_cfg(arch):
+    from repro_torch import configs
+    return configs.get(arch).config
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("off", [-1, 1])
+def test_moe_launch_check_refuses_an_off_by_one_count(arch, off):
+    """24 (granite-moe) or 48 (qwen3-moe) K4 launches a step, nothing else."""
+    cfg = _moe_cfg(arch)
+    step = chip_smoke.decode_launches(cfg, 1)
+    assert step["decode_attention"] == {"granite-moe-1b-a400m": 24, "qwen3-moe-30b-a3b": 48}[arch]
+    total = chip_smoke.decode_launches(cfg, 3)
+    chip_smoke.check_moe_launches(arch, cfg, [step] * 3, total)
+    bad_step = dict(step, decode_attention=step["decode_attention"] + off)
+    with pytest.raises(SystemExit, match="step 1 launched"):
+        chip_smoke.check_moe_launches(arch, cfg, [step, bad_step, step], total)
+    with pytest.raises(SystemExit, match="prefill"):               # a launch outside the steps
+        chip_smoke.check_moe_launches(arch, cfg, [step] * 3,
+                                      dict(total, decode_attention=total["decode_attention"] + off))
+    with pytest.raises(SystemExit, match="launched"):              # a K1 in a decode step
+        chip_smoke.check_moe_launches(arch, cfg, [dict(step, embedding_bag=1)] + [step] * 2, total)
+
+
+# ----------------------------------------------------------- the remote gates
+
+
+def _fleet_result(n, dropped=0, errors=0, rerouted=0):
+    import types
+    return types.SimpleNamespace(n_queries=n, dropped=dropped, errors=errors, rerouted=rerouted)
+
+
+def test_remote_run_check_refuses_a_lost_or_errored_query():
+    chip_smoke.check_remote_run("clean", _fleet_result(100), 100, killed=False)
+    chip_smoke.check_remote_run("sigkill", _fleet_result(100, rerouted=7), 100, killed=True)
+    for bad in (_fleet_result(99), _fleet_result(100, dropped=1), _fleet_result(100, errors=1)):
+        with pytest.raises(SystemExit, match="queries served"):
+            chip_smoke.check_remote_run("clean", bad, 100, killed=False)
+    with pytest.raises(SystemExit, match="re-routed"):       # a kill that re-routed nothing
+        chip_smoke.check_remote_run("sigkill", _fleet_result(100), 100, killed=True)
+
+
+def test_remote_worker_pids_must_be_among_the_cards_compute_apps():
+    """One pid namespace (nvidia-smi lists this process's own pid): every
+    worker's pid must be listed."""
+    before = "100, 2048 MiB\n"
+    during = before + "4242, 612 MiB\n4243, 610 MiB\n"
+    files = {4242: ["/dev/nvidia0"], 4243: ["/dev/nvidia0"]}
+    got = chip_smoke.workers_on_the_card([4242, 4243], 100, before, during, before, files,
+                                         (2048, 3270))
+    assert got["pids_listed"] and got["device_memory"] == {"4242": "612 MiB", "4243": "610 MiB"}
+    with pytest.raises(SystemExit, match=r"\[4244\]"):
+        chip_smoke.workers_on_the_card([4242, 4244], 100, before, during, before, files,
+                                       (2048, 3270))
+
+
+@pytest.mark.parametrize("fault", ["none", "one_short", "one_left_after", "no_device_file",
+                                   "only_the_control_device"])
+def test_remote_workers_in_a_pid_namespace_must_still_show_on_the_card(fault):
+    """A container with its own pid namespace: nvidia-smi lists every
+    process under another pid (the card machine's shows 1).  The list must
+    grow by one entry a worker and shrink back after, and each worker must
+    hold /dev/nvidiaN open."""
+    before = "1, 2048 MiB\n"
+    during = before + "1, 612 MiB\n1, 610 MiB\n"
+    after = before
+    files = {7: ["/dev/nvidia-uvm", "/dev/nvidia0", "/dev/nvidiactl"], 8: ["/dev/nvidia0"]}
+    if fault == "one_short":
+        during = before + "1, 612 MiB\n"
+    elif fault == "one_left_after":
+        after = before + "1, 610 MiB\n"
+    elif fault == "no_device_file":
+        files[8] = []
+    elif fault == "only_the_control_device":
+        files[8] = ["/dev/nvidiactl", "/dev/nvidia-uvm"]
+    run = lambda: chip_smoke.workers_on_the_card([7, 8], 300, before, during, after, files,  # noqa: E731
+                                                 (2048, 4888))
+    if fault == "none":
+        got = run()
+        assert not got["pids_listed"]
+        assert got["device_memory_mib_each"] == 1420.0
+    else:
+        with pytest.raises(SystemExit, match="compute apps|device file"):
+            run()
+    assert chip_smoke.parse_compute_apps("No running processes found\n") == []

@@ -370,6 +370,7 @@ def _decode_inputs(dev, b, hq, hkv, d, t, dtype, seed=3):
     (5, 7, 1, 8, 77), (2, 8, 2, 8, 1), (3, 4, 4, 16, 130),          # the smoke configs' D
     (2, 32, 32, 96, 300), (1, 56, 8, 128, 4097),                    # phi3 (D = 96), yi (G = 7)
     (8, 14, 2, 64, 1024),                                           # lm_generate's shape
+    (8, 16, 8, 64, 1024), (8, 32, 4, 128, 1024),                    # granite-moe, qwen3-moe
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel(dev, b, hq, hkv, d, t, dtype):
@@ -493,10 +494,12 @@ def test_forward_on_gpu_matches_cpu(dev, name):
                                        **NO_BWD}
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "phi3-mini-3.8b", "yi-34b",
+                                  "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"])
 def test_lm_decode_on_gpu_matches_cpu(dev, name):
-    """prefill + 3 decode steps of a dense LM smoke config: K4 on the card
-    against the plain attention on the CPU, float32 within 1e-4; K4 once
+    """prefill + 3 decode steps of an LM smoke config, dense or MoE: K4 on
+    the card against the plain attention on the CPU (the MoE layers'
+    dispatch on the card against the CPU's), float32 within 1e-4; K4 once
     per layer a step, nothing else."""
     cfg = configs.get(name).smoke_config
     params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -581,3 +584,50 @@ def test_live_node_on_the_card_serves_every_query_with_exact_launches(dev):
         assert r.telemetry.attribution().reconciles(0.05)
     finally:
         node.close()
+
+
+def test_apply_moe_on_gpu_matches_cpu(dev):
+    """The MoE layer at granite-moe's published widths (32 experts, top-8,
+    d_model 1,024, d_ff 512) on the card against the CPU, float32: 8 decode
+    tokens (capacity 2) and a prefill of 512 (capacity 160); the same
+    routing, so the same dropped share, and y within 1e-4."""
+    from repro_torch.layers import moe
+    params = moe.init_moe(torch.Generator().manual_seed(0), 1024, 512, 32, 8, device="cpu")
+    params_d = torch.utils._pytree.tree_map(lambda x: x.to(dev), params)
+    for b, s in ((8, 1), (1, 512)):
+        x = torch.from_numpy(np.random.default_rng(b).normal(size=(b, s, 1024))
+                             .astype(np.float32))
+        want, want_aux = moe.apply_moe(params, x, top_k=8)
+        got, got_aux = moe.apply_moe(params_d, x.to(dev), top_k=8)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        assert float(got_aux["dropped_frac"]) == float(want_aux["dropped_frac"])
+        torch.testing.assert_close(got_aux["aux_loss"].cpu(), want_aux["aux_loss"],
+                                   rtol=1e-5, atol=0)
+
+
+def test_remote_worker_serves_on_the_card(dev):
+    """A worker the supervisor was not told a device for serves mlp on the
+    card: it says so, its outputs equal the twin on the CPU, and it serves
+    every query of a short trace."""
+    from repro_torch.cluster.live import BucketedDeviceModel
+    from repro_torch.cluster.remote import WorkerSupervisor, remote_node
+    from repro_torch.serve.remote import build_model
+    curve = BucketedDeviceModel(np.array([1, 2, 4, 8, 16, 32, 64]), np.full(7, 1e-4))
+    with WorkerSupervisor() as sup:
+        b = remote_node("mlp:128:256:2", supervisor=sup, device=curve, batch_size=16,
+                        max_bucket=64)
+        try:
+            assert sup.ping(b.handle)["device"] == "cuda"
+            b.start(0.0)
+            b.submit(np.arange(20), np.linspace(0.0, 0.1, 20), np.full(20, 8))
+            b.drain(30)
+            recs = b.completed_records()
+            assert sorted(r.index for r in recs) == list(range(20))
+            assert all(r.error is None for r in recs)
+        finally:
+            b.close()
+    apply_fn, make_batch = build_model("mlp:128:256:2", dev)
+    cpu_fn, _ = build_model("mlp:128:256:2", "cpu")
+    x = torch.from_numpy(make_batch(16, -1)["x"])
+    torch.testing.assert_close(apply_fn({"x": x.to(dev)}).cpu(), cpu_fn({"x": x}),
+                               rtol=1e-5, atol=1e-5)

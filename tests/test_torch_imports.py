@@ -34,6 +34,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "import chip_smoke\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
         "import serve_recsys_torch, quickstart_torch, live_fleet_torch, train_dlrm_torch\n"
+        "import remote_fleet_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
@@ -42,7 +43,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(code)
     assert res.returncode == 0, res.stderr[-2000:]
     n_modules = sum(1 for _ in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
-    assert int(res.stdout.strip().splitlines()[-1]) == n_modules + 1 >= 72
+    assert int(res.stdout.strip().splitlines()[-1]) == n_modules + 1 >= 79
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
@@ -52,10 +53,11 @@ def test_no_source_file_imports_jax_or_the_jax_package():
              os.path.join(REPO, "examples", "serve_recsys_torch.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "live_fleet_torch.py"),
-             os.path.join(REPO, "examples", "train_dlrm_torch.py")]
+             os.path.join(REPO, "examples", "train_dlrm_torch.py"),
+             os.path.join(REPO, "examples", "remote_fleet_torch.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 72
+    assert len(files) > 79
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
@@ -130,3 +132,21 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                          env=dict(os.environ, PYTHONPATH=""))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_a_worker_process_imports_neither_jax_nor_the_jax_package():
+    """The remote tier's worker entry point and everything it imports to
+    serve a model (the mlp twin built on the CPU) stay off JAX."""
+    code = (
+        "import sys\n"
+        "from repro_torch.serve import remote\n"
+        "import repro_torch.cluster.remote, repro_torch.obs.dump, repro_torch.obs.report\n"
+        "import repro_torch.layers.moe\n"
+        "apply_fn, make_batch = remote.build_model('mlp:8:8:1', 'cpu')\n"
+        "import torch\n"
+        "apply_fn({'x': torch.from_numpy(make_batch(2, -1)['x'])})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr[-2000:]

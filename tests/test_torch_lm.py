@@ -1,12 +1,19 @@
-"""The port's dense LM serving path (prefill, decode_step) against the JAX
-package on the CPU: weights initialised in JAX and converted
-(compat.from_jax_params), tokens from the same numpy generator.
+"""The port's LM serving path (prefill, decode_step), dense and
+mixture-of-experts, against the JAX package on the CPU: weights initialised
+in JAX and converted (compat.from_jax_params), tokens from the same numpy
+generator.
 
 float32 throughout, rtol = atol = 1e-4: the JAX decode step attends
 through ``_sdpa`` with its ``t <= pos`` mask, the port's through
 ``ops.decode_attention`` (the plain version of K4 on the CPU) with
 ``pos + 1``, and the two frameworks' matmuls, exponentials and RoPE angles
-round differently in the last bits."""
+round differently in the last bits.  The MoE loss and its gradients are
+held at the same tolerance, tests/test_torch_train.py's for the LM.
+
+An MoE config's prefill then decode is not its forward (each call's
+capacity depends on its number of tokens, as in the reference), so the
+MoE configs are held against the reference call by call and are not in
+``test_prefill_then_decode_equals_forward``."""
 import dataclasses
 
 import jax
@@ -22,13 +29,17 @@ from repro_torch import compat, configs
 from repro_torch.data import synthetic as syn
 from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.train.microbatch import value_and_grad
+from repro_torch.utils import leaves_with_paths
 
 DENSE = ["qwen2-0.5b", "phi3-mini-3.8b", "yi-34b"]
+MOE = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 KEY = jax.random.PRNGKey(5)
 # compiled once per config: op-by-op dispatch of the JAX step costs seconds
 jax_prefill = jax.jit(jax_lm.prefill, static_argnums=(1, 3))
 jax_decode_step = jax.jit(jax_lm.decode_step, static_argnums=(1,))
+jax_value_and_grad = jax.jit(jax.value_and_grad(jax_lm.loss_fn), static_argnums=1)
 
 
 def _convert(params):
@@ -39,13 +50,15 @@ def _np(x) -> np.ndarray:
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_and_decode_match_jax(arch):
     """prefill of 6 tokens into caches of 12 slots, then 4 teacher-forced
     decode steps; logits of every step against JAX's.  The decode mask
     (the layer's ``t <= pos`` after its write, the kernel's ``t < pos + 1``)
     is checked end to end here; qwen2-smoke also carries the QKV bias and
-    the tied unembedding (``x @ embed.T``)."""
+    the tied unembedding (``x @ embed.T``).  The MoE smoke configs route
+    18 prompt tokens at capacity 5 and each step's 3 at capacity 1
+    (8 experts, top-2), so both calls drop assignments."""
     cfg_j = jax_configs.get(arch).smoke_config
     cfg = configs.get(arch).smoke_config
     params_j = jax_lm.init(KEY, cfg_j)
@@ -118,7 +131,7 @@ def test_stacked_jax_tree_converts_to_a_layer_list():
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_configs_and_param_count_match_jax(arch):
     """Every field the port keeps is the JAX package's; the analytic
     parameter counts agree, and so do the trees' sizes at smoke size."""
@@ -159,17 +172,58 @@ def test_lm_batch_matches_jax(batch, seq):
         np.testing.assert_array_equal(got[key], np.asarray(want[key]))
 
 
-def test_moe_config_raises():
-    cfg = dataclasses.replace(configs.get("qwen2-0.5b").smoke_config, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="layers/moe.py"):
-        lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    params = lm.init(torch.Generator().manual_seed(0), configs.get("qwen2-0.5b").smoke_config,
-                     device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: lm.forward(params, cfg, toks), lambda: lm.prefill(params, cfg, toks, 8),
-                 lambda: lm.decode_step(params, cfg, toks[:, 0], [])):
-        with pytest.raises(NotImplementedError, match="layers/moe.py"):
-            call()
+@pytest.mark.parametrize("arch,seq", [("granite-moe-1b-a400m", 64),
+                                      ("granite-moe-1b-a400m", 1024),
+                                      ("qwen3-moe-30b-a3b", 64)])
+def test_moe_loss_and_grads_match_jax(arch, seq):
+    """Cross-entropy plus 0.01 times the layers' auxiliary loss, and every
+    leaf's gradient (the router's through the renormalised top-k weights
+    and the auxiliary loss), against jax.value_and_grad of the reference's
+    loss; S = 1,024 takes the chunked path."""
+    cfg_j = jax_configs.get(arch).smoke_config
+    cfg = configs.get(arch).smoke_config
+    params_j = jax_lm.init(KEY, cfg_j)
+    params = _convert(params_j)
+    batch = syn.lm_batch(np.random.default_rng(6), cfg, 2, seq)
+    want_loss, want_grads = jax_value_and_grad(params_j, cfg_j,
+                                               {k: jnp.asarray(v) for k, v in batch.items()})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b), params, tb)
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL)
+    want = {jax.tree_util.keystr(k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(want_grads)[0]}
+    got = {k: _np(v.detach()) for k, v in leaves_with_paths(grads)}
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+    assert np.abs(got["['layers'][0]['moe']['router']['w']"]).max() > 0
+    _, aux = lm.forward_hidden(params, cfg, tb["tokens"])
+    _, aux_j = jax_lm.forward_hidden(params_j, cfg_j, jnp.asarray(batch["tokens"]))
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(aux), float(aux_j), rtol=1e-6)
+
+
+def test_stacked_moe_tree_converts_to_a_layer_list():
+    """The published MoE configs stack their layers: the router and the
+    three expert stacks gain a leading L axis (wg: (L, E, d, f)).  compat
+    unstacks them, and the logits are JAX's."""
+    arch = "granite-moe-1b-a400m"
+    cfg = configs.get(arch).smoke_config
+    cfg_s = dataclasses.replace(jax_configs.get(arch).smoke_config, scan_layers=True)
+    params_s = jax_lm.init(KEY, cfg_s)
+    assert params_s["layers"]["moe"]["wg"].shape == (cfg.n_layers, cfg.n_experts, cfg.d_model,
+                                                     cfg.d_ff)
+    params = _convert(params_s)
+    assert isinstance(params["layers"], list) and len(params["layers"]) == cfg.n_layers
+    moe = params["layers"][1]["moe"]
+    assert set(moe) == {"router", "wg", "wu", "wd"}
+    assert moe["router"]["w"].shape == (cfg.d_model, cfg.n_experts)
+    assert moe["wd"].shape == (cfg.n_experts, cfg.d_ff, cfg.d_model)
+    np.testing.assert_array_equal(moe["wu"].numpy(), np.asarray(params_s["layers"]["moe"]["wu"][1]))
+    toks = syn.lm_batch(np.random.default_rng(3), cfg, 2, 7)["tokens"]
+    want, _ = jax_lm.forward(params_s, cfg_s, jnp.asarray(toks))
+    got = lm.forward(params, cfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
 def test_entry_points_need_a_device_or_a_gpu():

@@ -221,3 +221,52 @@ def test_write_jsonl_round_trip_equals_the_reference(tmp_path):
     run = next(rec for rec in lines if rec["kind"] == "run")
     assert run["p95_ms"] == got.p95_ms and run["n_queries"] == got.n_queries
     assert got.telemetry.prometheus() == want.telemetry.prometheus()
+
+
+@pytest.mark.parametrize("argv", [[], ["--windows"], ["--window", "0.2:0.5"], ["--window", ":0.3"],
+                                  ["--node", "sky[1]", "--windows"],
+                                  ["--node", "sky[0]", "--window", "0.4:"]])
+def test_dump_cli_prints_the_reference_bytes(tmp_path, capsys, argv):
+    """One artifact (a port run with a kill, a cache and an SLO engine)
+    through the reference's ``python -m repro.obs.dump`` and the port's:
+    the same stdout, byte for byte, and the same exit code."""
+    from repro.obs import dump as jax_dump
+    from repro_torch.obs import dump
+
+    path = tmp_path / "run.jsonl"
+    obs.write_jsonl(_run(cluster, lat, qg, kill=True), str(path))
+    outs = []
+    for main in (jax_dump.main, dump.main):
+        assert main([str(path)] + argv) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert outs[1].startswith("run: qps=") and "attribution (ms):" in outs[1]
+    if argv:
+        assert "  t=" in outs[1]
+    if "--node" in argv:
+        assert '    node_latency_ms{node="sky[' in outs[1]
+    empty = tmp_path / "empty.jsonl"
+    empty.write_text("")
+    assert jax_dump.main([str(empty)]) == dump.main([str(empty)]) == 1
+
+
+def test_report_cli_prints_the_reference_bytes(tmp_path, capsys):
+    """The incident postmortems of one artifact through both packages'
+    ``report`` CLIs: the same stdout, byte for byte; an artifact without
+    SLO records is refused by both."""
+    from repro.obs import report as jax_report
+    from repro_torch.obs import report
+
+    path = tmp_path / "run.jsonl"
+    obs.write_jsonl(_run(cluster, lat, qg, kill=True), str(path))
+    outs = []
+    for main in (jax_report.main, report.main):
+        assert main([str(path)]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert outs[1].startswith("objective p95:") and "incident #1" in outs[1]
+    bare = tmp_path / "bare.jsonl"
+    bare.write_text("\n".join(line for line in path.read_text().splitlines()
+                              if '"kind": "slo_objective"' not in line
+                              and '"kind":"slo_objective"' not in line) + "\n")
+    assert jax_report.main([str(bare)]) == report.main([str(bare)]) == 1

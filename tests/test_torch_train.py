@@ -11,7 +11,6 @@ forward; optimiser updates rtol = 1e-6, atol = 1e-7 (the same arithmetic,
 with fused multiply-adds and adagrad's step in another rounding order); five
 training steps rtol = 1e-4, atol = 1e-5 (the gradients' differences carried
 through adagrad's per-coordinate rates)."""
-import dataclasses
 import os
 
 import jax
@@ -153,7 +152,7 @@ def test_serving_builds_no_graph():
 # ------------------------------------------------------------------ losses
 
 
-@pytest.mark.parametrize("name", MODELS + ["xdeepfm", "autoint"])
+@pytest.mark.parametrize("name", MODELS + ["xdeepfm", "autoint", "mind", "bert4rec"])
 def test_recsys_loss_and_grads_match_jax(name):
     jcfg, cfg, jparams, params = _both_recsys(name)
     batch = syn.recsys_batch(np.random.default_rng(1), cfg, 7)
@@ -182,8 +181,8 @@ def test_lm_loss_and_grads_match_jax(seq):
     np.testing.assert_allclose(float(loss), float(want_loss), **LM_TOL)
     _assert_trees_close(grads, want_grads, **LM_TOL)
     if seq == 1024:
-        whole = lm._chunk_nll(params, cfg, lm.forward_hidden(params, cfg, torch.from_numpy(
-            batch["tokens"])), torch.from_numpy(batch["labels"])) / (2 * seq)
+        hidden, _ = lm.forward_hidden(params, cfg, torch.from_numpy(batch["tokens"]))
+        whole = lm._chunk_nll(params, cfg, hidden, torch.from_numpy(batch["labels"])) / (2 * seq)
         np.testing.assert_allclose(float(loss), float(whole), rtol=1e-6)
 
 
@@ -440,7 +439,7 @@ def test_nan_guard_keeps_the_state_and_aborts_after_three():
 # ---------------------------------------------------------------- launcher
 
 
-@pytest.mark.parametrize("arch", ["dlrm-rmc2", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["dlrm-rmc2", "qwen2-0.5b", "granite-moe-1b-a400m"])
 def test_launch_train_runs_on_the_cpu(arch, capsys):
     state = launch_train.main(["--arch", arch, "--steps", "4", "--batch", "8", "--seq", "16",
                                "--device", "cpu"])
@@ -457,13 +456,6 @@ def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
     state = launch_train.main(argv[:3] + ["6"] + argv[4:])
     assert state.step == 6 and ckpt.all_steps(str(tmp_path)) == [3, 6]
     assert "resumed from step 3" in capsys.readouterr().out
-
-
-def test_a_moe_config_raises_through_dense_only():
-    cfg = dataclasses.replace(configs.get("qwen2-0.5b").smoke_config, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="moe"):
-        lm.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                             "labels": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_utils_match_the_reference():
