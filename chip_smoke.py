@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port: the quickest proof that the port
 builds its kernels and serves on a card.
 
-    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~5 minutes
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~6 minutes
 
 What it does, one JSON line per phase:
 
@@ -72,6 +72,26 @@ What it does, one JSON line per phase:
                  qwen2-0.5b at its published size (bf16, B = 4, S = 1,024):
                  the chunked loss against the whole one and 3 AdamW steps,
                  no kernel launched.  Frees all it holds
+  gnn            the GCN (gcn-cora rebound to each shape) at the four
+                 GNN_SHAPES, graphs built on the host by the port's
+                 random_graph, graph_to_csr and molecule_batch: Cora's
+                 shape (step 0's loss and gradients against float64 on the
+                 CPU, 100 AdamW steps, train accuracy rising), the
+                 molecule batch (20 steps), ogbn-products' full batch (the
+                 edge layout, a forward and 3 steps timed, peak memory,
+                 bytes a step against 3.35 TB/s), the Reddit-scale graph
+                 (CSR and sampler on the host, 5 sampled minibatch steps on
+                 the card); Cora's and the molecules' runs twice and
+                 ogbn-products' first step twice, the same bits; no
+                 kernel launched; within 150 s
+  dist           the distributed runtime (ring all-gather, overlapped and
+                 reduce-scatter matmuls, GPipe, compressed_psum,
+                 make_sharded_moe at granite-moe-1b-a400m's layer width) in
+                 an NCCL world of one rank on the card, each against its
+                 single-device meaning; then in 4 gloo processes on the
+                 host CPU (a (2, 2) mesh for the MoE), and compressed_psum's
+                 4 ranks on the card's tensors through gloo where it takes
+                 them; no process outlives it; within 60 s
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -124,6 +144,8 @@ builds the kernels, runs only PHASE (a key of ONLY) and prints its line and
 no result line:
 
   train        the train phase (backward kernels checked and timed)
+  gnn          the gnn phase
+  dist         the dist phase
   lm_moe       the lm_moe phase
   remote       the remote phase
   k2_timings   K2 timed at the DLRM shapes
@@ -143,6 +165,7 @@ import dataclasses
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -152,6 +175,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import distribute_tensor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -170,7 +196,11 @@ from repro_torch.core.query_gen import (PRODUCTION, SizeDist, generate_queries, 
 from repro_torch.core.scheduler import static_baseline, tune  # noqa: E402
 from repro_torch.core.simulator import (SUSTAIN_FRACTION, SchedulerConfig,  # noqa: E402
                                         max_qps_under_sla, simulate)
+from repro_torch.configs import gcn_cora  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed import pipeline as pipe  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cin as cin_kernel  # noqa: E402
 from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
@@ -179,14 +209,16 @@ from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers import moe as moe_lib  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
-from repro_torch.models import lm, recsys  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import gnn, lm, recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
 from repro_torch.serve.runtime import (OnlineController, ServingRuntime,  # noqa: E402
                                        to_device)
+from repro_torch.train import grad_compress as gc  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.loop import train  # noqa: E402
 from repro_torch.train.microbatch import value_and_grad  # noqa: E402
-from repro_torch.utils import leaves_with_paths  # noqa: E402
+from repro_torch.utils import leaves_with_paths, param_bytes, tree_map  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the bound's yardstick
 HBM_BYTES_PER_S = 3.35e12
@@ -257,6 +289,17 @@ LM_CHUNK_RTOL = 1e-2
 # the lm_moe phase: both MoE LMs at their published sizes under
 # lm_generate's traffic; qwen3-moe (61 GB of weights) for fewer steps
 MOE_STEPS = {"granite-moe-1b-a400m": GEN_STEPS, "qwen3-moe-30b-a3b": 8}
+# the gnn phase: the GCN at its four graph shapes, AdamW at the reference
+# launcher's rate, its clip; the phase must end within GNN_SECONDS
+GNN_LR = 1e-2
+GNN_CORA_STEPS, GNN_MINIBATCH_STEPS, GNN_PRODUCTS_STEPS, GNN_MOLECULE_STEPS = 100, 5, 3, 20
+GNN_SECONDS = 150.0
+# the dist phase: an NCCL world of one rank on the card, then DIST_WORLD
+# gloo ranks on the host; the MoE at DIST_MOE's layer width
+DIST_WORLD = 4
+DIST_MOE = "granite-moe-1b-a400m"
+DIST_SECONDS = 60.0
+DIST_DIR = Path(__file__).resolve().parent / "build" / "dist_smoke"
 # the remote phase: two card workers of the JAX package's live_parity
 # MLP behind the supervisor, buckets to 64, each run HORIZON seconds of
 # trace at half the lockstep-calibrated capacity
@@ -2674,11 +2717,413 @@ def train_phase(seed: int, dev, gen) -> dict:
     return line
 
 
+# ------------------------------------------------------------------ gnn
+
+
+def gnn_run(loss_fn, params, batch: dict, steps: int):
+    """``steps`` AdamW steps of train.loop on one batch, from ``params``
+    (left unchanged): (losses, ms a step on the host's clock ended by a
+    synchronise, the trained parameters)."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = train(loss_fn, optim.adamw(GNN_LR), params, iter(lambda: batch, None),
+                  num_steps=steps, log_every=0, clip_norm=TRAIN_CLIP,
+                  hooks=[lambda s, p, m: losses.append(float(m["loss"]))])
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / steps * 1e3
+    check_losses("gnn", losses, steps)
+    return losses, ms, state.params
+
+
+def step_profile(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time of its
+    ``top`` longest kernels (by name, summed over launches), the sum over all
+    its kernels, and that sum's share of the call's wall time, the device's
+    busy share (the kernels run on one stream, so they do not overlap).
+    None where the trace saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((getattr(e, "device_time_total", 0.0) / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
+    total = sum(ms for ms, _, _ in kernels)
+    if not total:
+        return {"wall_ms": wall_ms, "device_ms": None}
+    return {"wall_ms": wall_ms, "device_ms": total, "busy_share": total / wall_ms,
+            "launches": sum(n for _, n, _ in kernels),
+            "top": [{"kernel": k[:90], "ms": ms, "launches": n} for ms, n, k in kernels[:top]]}
+
+
+def check_same_bits(what: str, a: list, b: list) -> None:
+    if a != b:
+        fail(f"gnn {what}: a second run gave other losses: {a} vs {b}")
+
+
+def gnn_cora(rng, gen, dev) -> dict:
+    """full_graph_sm (Cora's shape): step 0's loss and every gradient against
+    the same weights on the CPU in float64; GNN_CORA_STEPS AdamW steps, twice
+    from the same weights (the same losses to the bit); train accuracy
+    before and after (it must rise)."""
+    shape = configs.GNN_SHAPES["full_graph_sm"]
+    cfg = gcn_cora.config_for_shape(shape)
+    t0 = time.monotonic()
+    g = syn.random_graph(rng, shape.n_nodes, shape.n_edges, cfg.d_feat, cfg.n_classes)
+    host_s = time.monotonic() - t0
+    batch = to_device(g, dev)
+    params = gnn.init(gen, cfg, device=dev)
+
+    def loss_fn(p, b):
+        return gnn.loss_fn(p, cfg, b)
+
+    loss, grads = step_grads(loss_fn, params, batch)
+    loss64, grads64 = step_grads(loss_fn, tree_map(lambda t: t.cpu().double(), params),
+                                 {k: (v.cpu().double() if v.is_floating_point() else v.cpu())
+                                  for k, v in batch.items()})
+    loss_err = compare("gnn cora loss vs float64", torch.tensor(loss), torch.tensor(loss64),
+                       TOL[torch.float32], 0.0)
+    grad_err = check_train_grads("gnn cora", {k: v.cpu() for k, v in grads.items()}, grads64)
+
+    def accuracy(p) -> float:
+        with torch.no_grad():
+            pred = gnn.forward(p, cfg, batch["x"], batch["edge_index"]).argmax(-1)
+        m = batch["train_mask"]
+        return float((pred[m] == batch["labels"][m].long()).float().mean())
+
+    acc0 = accuracy(params)
+    losses, ms, trained = gnn_run(loss_fn, params, batch, GNN_CORA_STEPS)
+    check_same_bits("cora", losses, gnn_run(loss_fn, params, batch, GNN_CORA_STEPS)[0])
+    acc1 = accuracy(trained)
+    if not acc1 > acc0:
+        fail(f"gnn cora: train accuracy did not rise ({acc0} -> {acc1})")
+    return {"nodes": shape.n_nodes, "edges": shape.n_edges, "d_feat": cfg.d_feat,
+            "classes": cfg.n_classes, "graph_host_s": host_s,
+            "loss_abs_err_vs_float64": loss_err, "grad_max_abs_err_vs_float64": grad_err,
+            "tol": TOL[torch.float32], "steps": GNN_CORA_STEPS, "first_loss": losses[0],
+            "last_loss": losses[-1], "train_accuracy_before": acc0,
+            "train_accuracy_after": acc1, "ms_a_step": ms, "second_run_same_bits": True}
+
+
+def gnn_molecule(rng, gen, dev) -> dict:
+    """molecule: 128 graphs of 30 nodes and 64 edges, GNN_MOLECULE_STEPS
+    AdamW steps of graph_loss_fn, twice (the same losses to the bit)."""
+    shape = configs.GNN_SHAPES["molecule"]
+    cfg = gcn_cora.config_for_shape(shape)
+    t0 = time.monotonic()
+    mb = syn.molecule_batch(rng, shape.batch, shape.nodes_per_graph, shape.edges_per_graph,
+                            cfg.d_feat, cfg.n_classes)
+    host_s = time.monotonic() - t0
+    batch = to_device(mb, dev)
+    params = gnn.init(gen, cfg, device=dev)
+
+    def loss_fn(p, b):
+        return gnn.graph_loss_fn(p, cfg, b)
+
+    losses, ms, _ = gnn_run(loss_fn, params, batch, GNN_MOLECULE_STEPS)
+    check_same_bits("molecule", losses, gnn_run(loss_fn, params, batch, GNN_MOLECULE_STEPS)[0])
+    return {"graphs": shape.batch, "nodes_per_graph": shape.nodes_per_graph,
+            "edges_per_graph": shape.edges_per_graph, "graph_host_s": host_s,
+            "steps": GNN_MOLECULE_STEPS, "first_loss": losses[0], "last_loss": losses[-1],
+            "ms_a_step": ms, "second_run_same_bits": True}
+
+
+def gnn_products(rng, gen, dev) -> dict:
+    """ogb_products, full batch: the edge layout, a forward and the first
+    step's loss and gradients timed (events); that step twice (the same
+    bits); GNN_PRODUCTS_STEPS AdamW steps; peak memory; the bytes a step
+    must move (inputs read once, parameters and AdamW state read and
+    written) against 3.35 TB/s, and the message traffic of the reference's
+    formulation (gather written and read, then summed: 3·E·width·4 bytes
+    for layer 1's forward, layer 2's and its backward)."""
+    shape = configs.GNN_SHAPES["ogb_products"]
+    cfg = gcn_cora.config_for_shape(shape)
+    t0 = time.monotonic()
+    g = syn.random_graph(rng, shape.n_nodes, shape.n_edges, cfg.d_feat, cfg.n_classes)
+    host_s = time.monotonic() - t0
+    batch = to_device(g, dev)
+    del g
+    params = gnn.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def loss_fn(p, b):
+        return gnn.loss_fn(p, cfg, b)
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    edges = gnn._prepare(batch["edge_index"], shape.n_nodes, shape.n_nodes,
+                         max(cfg.d_feat, cfg.d_hidden))
+    ev[1].record()
+    del edges
+    ev[2].record()
+    with torch.no_grad():
+        gnn.forward(params, cfg, batch["x"], batch["edge_index"])
+    ev[3].record()
+    loss_a, grads_a = step_grads(loss_fn, params, batch)
+    ev[4].record()
+    loss_b, grads_b = step_grads(loss_fn, params, batch)
+    ev[5].record()
+    torch.cuda.synchronize()
+    if loss_a != loss_b or any(not torch.equal(grads_a[k], grads_b[k]) for k in grads_a):
+        fail(f"gnn ogb_products: the first step twice gave other bits ({loss_a} vs {loss_b})")
+    del grads_a, grads_b
+    profiled = step_profile(lambda: step_grads(loss_fn, params, batch))
+    losses, ms, _ = gnn_run(loss_fn, params, batch, GNN_PRODUCTS_STEPS)
+    if losses[0] != loss_a:
+        fail(f"gnn ogb_products: the training run's first loss {losses[0]} != {loss_a}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the graph read once; the parameters read and written, AdamW's m and v
+    # (float32, as the parameters) read and written
+    step_bytes = sum(v.numel() * v.element_size() for v in batch.values()) \
+        + 6 * param_bytes(params)
+    width = cfg.d_feat + 2 * cfg.d_hidden
+    message_bytes = 3 * shape.n_edges * width * 4
+    del batch, params
+    torch.cuda.empty_cache()
+    return {"nodes": shape.n_nodes, "edges": shape.n_edges, "d_feat": cfg.d_feat,
+            "classes": cfg.n_classes, "graph_host_s": host_s,
+            "edge_layout_ms": ev[0].elapsed_time(ev[1]),
+            "forward_ms": ev[2].elapsed_time(ev[3]),
+            "first_step_ms": [ev[3].elapsed_time(ev[4]), ev[4].elapsed_time(ev[5])],
+            "first_step_same_bits": True, "first_step_profile": profiled,
+            "steps": GNN_PRODUCTS_STEPS, "losses": losses,
+            "ms_a_step": ms, "peak_gb": peak / 1e9, "bytes_a_step": step_bytes,
+            "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "message_bytes_a_step": message_bytes,
+            "message_bound_ms": message_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def gnn_minibatch(rng, gen, dev) -> dict:
+    """minibatch_lg: the graph and its CSR on the host, x and the labels on
+    the card; GNN_MINIBATCH_STEPS steps of 1,024 seeds, each sampled on the
+    host (sample_neighbors, fanouts (15, 10)) and run on the card
+    (forward_blocks, a cross-entropy on the seeds, AdamW): the sampler's
+    host ms, the step's device ms, each block's nodes and edges."""
+    shape = configs.GNN_SHAPES["minibatch_lg"]
+    cfg = gcn_cora.config_for_shape(shape)
+    t0 = time.monotonic()
+    g = syn.random_graph(rng, shape.n_nodes, shape.n_edges, cfg.d_feat, cfg.n_classes)
+    graph_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    indptr, indices = syn.graph_to_csr(shape.n_nodes, g.pop("edge_index"))
+    csr_s = time.monotonic() - t0
+    x = torch.from_numpy(g["x"]).to(dev)
+    labels = torch.from_numpy(g["labels"]).to(dev).long()
+    del g
+    params = gnn.init(gen, cfg, device=dev)
+    opt = optim.adamw(GNN_LR)
+    opt_state = opt.init(params)
+
+    def loss_fn(p, b):
+        logp = torch.log_softmax(gnn.forward_blocks(p, cfg, b["x"], b["blocks"]).float(), -1)
+        return -logp.gather(-1, b["labels"][:, None]).mean()
+
+    steps = []
+    for _ in range(GNN_MINIBATCH_STEPS):
+        seeds = rng.choice(shape.n_nodes, shape.batch_nodes, replace=False)
+        t0 = time.perf_counter()
+        blocks, input_nodes = gnn.sample_neighbors(indptr, indices, seeds, shape.fanouts, rng)
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        b = {"x": x[torch.from_numpy(input_nodes).to(dev)], "blocks": blocks,
+             "labels": labels[torch.from_numpy(seeds).to(dev)]}
+        loss, grads = value_and_grad(loss_fn, params, b)
+        params, opt_state = opt.update(optim.clip_by_global_norm(grads, TRAIN_CLIP), opt_state,
+                                       params)
+        stop.record()
+        torch.cuda.synchronize()
+        steps.append({"sampler_host_ms": sample_ms, "step_device_ms": start.elapsed_time(stop),
+                      "loss": float(loss),
+                      "blocks": [{"n_src": n_src, "n_dst": n_dst, "edges": int(ei.shape[1])}
+                                 for ei, n_src, n_dst in blocks]})
+    check_losses("gnn minibatch_lg", [s["loss"] for s in steps], GNN_MINIBATCH_STEPS)
+    del x, labels, params, opt_state
+    torch.cuda.empty_cache()
+    return {"nodes": shape.n_nodes, "edges": shape.n_edges, "d_feat": cfg.d_feat,
+            "classes": cfg.n_classes, "seeds": shape.batch_nodes,
+            "fanouts": list(shape.fanouts), "graph_host_s": graph_s, "csr_host_s": csr_s,
+            "steps": steps, "reduced": None}
+
+
+def gnn_phase(seed: int, dev, gen) -> dict:
+    """The GCN (gcn-cora, rebound to each shape's features and classes) at
+    the four GNN_SHAPES on the card, through no hand-written kernel."""
+    t0 = time.monotonic()
+    rng = np.random.default_rng(seed)
+    ops.reset_launch_counts()
+    line = {"phase": "gnn", "arch": "gcn-cora",
+            "full_graph_sm": gnn_cora(rng, gen, dev),
+            "molecule": gnn_molecule(rng, gen, dev),
+            "ogb_products": gnn_products(rng, gen, dev),
+            "minibatch_lg": gnn_minibatch(rng, gen, dev)}
+    line["launches"] = ops.launch_counts()
+    if any(line["launches"].values()):
+        fail(f"gnn: launched {line['launches']}; the GCN runs through no kernel")
+    line["graph_host_s"] = sum(line[k]["graph_host_s"] for k in configs.GNN_SHAPES)
+    line["seconds"] = time.monotonic() - t0
+    if line["seconds"] > GNN_SECONDS:
+        fail(f"gnn: took {line['seconds']:.1f} s, past {GNN_SECONDS} s")
+    return line
+
+
+# ----------------------------------------------------------------- dist
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_checks(rank: int, world: int, dev) -> dict:
+    """The distributed runtime on ``dev`` tensors, on one rank of a world of
+    ``world``, each piece against its single-device meaning; the inputs are
+    the same on every rank (one seed).  Fails on a disagreement; returns the
+    errors."""
+    tol = TOL[torch.float32]
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    x, w = randn(8 * world, 64), randn(64, 32)
+    out = {}
+    if not torch.equal(coll.ring_all_gather(x.chunk(world)[rank]), x):
+        fail(f"dist rank {rank}/{world}: ring_all_gather is not the concatenation")
+    out["overlapped_matmul"] = compare(
+        "dist overlapped_all_gather_matmul",
+        coll.overlapped_all_gather_matmul(x.chunk(world)[rank], w), x @ w, tol, tol)
+    out["reduce_scatter_matmul"] = compare(
+        "dist reduce_scatter_matmul",
+        coll.reduce_scatter_matmul(x.chunk(world, dim=1)[rank].contiguous(),
+                                   w.chunk(world)[rank]), (x @ w).chunk(world)[rank], tol, tol)
+    ws = randn(world, 64, 64, scale=0.1)
+    want = x
+    for i in range(world):
+        want = torch.tanh(want @ ws[i])
+    fwd = pipe.make_pipelined_fn(lambda w_, h: torch.tanh(h @ w_), num_microbatches=4)
+    out["pipeline"] = compare(f"dist gpipe of {world} stages", fwd(ws, x), want, tol, tol)
+
+    gs = randn(world, 4096 + 100)                         # not whole blocks of 256
+    mean, res = gc.compressed_psum({"g": gs[rank]}, None, {"g": torch.zeros_like(gs[rank])})
+    scale = float(gs.abs().max()) / 127
+    err = float((mean["g"] - gs.mean(0)).abs().max())
+    if err > scale:
+        fail(f"dist compressed_psum: {err} from the mean, past the block scale {scale}")
+    out["compressed_psum"] = {"max_abs_err": err, "block_scale": scale}
+
+    cfg = configs.get(DIST_MOE).config
+    m = 1 if world == 1 else 2
+    mesh = mesh_lib.make_host_mesh(world // m, m, device=dev.type)
+    params = tree_map(lambda t: t.to(dev), moe_lib.init_moe(
+        gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, device="cpu"))
+    experts = shd.to_placements(mesh, ("model", None, None))
+    sharded = {"router": params["router"],
+               **{k: distribute_tensor(params[k], mesh, experts)
+                  for k in ("wg", "wu", "wd")}}
+    # each batch shard's 32 tokens: capacity 10 a expert for a mean load of 8
+    xs = randn(world // m, 4, 8, cfg.d_model)
+    y, aux = moe_lib.make_sharded_moe(mesh, top_k=cfg.top_k)(
+        sharded, xs[mesh.get_local_rank("data")])
+    wants = [moe_lib.apply_moe(params, xb, top_k=cfg.top_k) for xb in xs]
+    out["moe"] = {"mesh": list(mesh.shape), "dropped_frac": float(aux["dropped_frac"]),
+                  "y_max_abs_err": compare(
+        "dist make_sharded_moe", y, wants[mesh.get_local_rank("data")][0], tol, tol)}
+    for k in ("aux_loss", "dropped_frac"):
+        out["moe"][f"{k}_abs_err"] = compare(f"dist make_sharded_moe {k}", aux[k],
+                                torch.stack([a[k] for _, a in wants]).mean(), tol, 0.0)
+    return out
+
+
+def dist_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """One gloo rank on the host: dist_checks on CPU tensors, then
+    compressed_psum on the card's tensors where gloo takes them."""
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        res = {"rank": rank, "cpu": dist_checks(rank, world, torch.device("cpu"))}
+        g = torch.randn((world, 4196), generator=torch.Generator().manual_seed(1)).cuda()
+        try:
+            mean, _ = gc.compressed_psum({"g": g[rank]}, None, {"g": torch.zeros_like(g[rank])})
+            err = float((mean["g"] - g.mean(0)).abs().max())
+            res["gloo_cuda_compressed_psum"] = {"ran": True, "max_abs_err": err,
+                                                "block_scale": float(g.abs().max()) / 127}
+        except RuntimeError as e:               # gloo refusing CUDA tensors is the finding
+            res["gloo_cuda_compressed_psum"] = {"ran": False, "error": str(e)[:300]}
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_phase(seed: int, dev) -> dict:
+    """An NCCL process group of one rank on the card, every piece of the
+    distributed runtime on CUDA tensors against its single-device meaning;
+    then the same in DIST_WORLD gloo processes on the host CPU, and
+    compressed_psum's ranks on the card through gloo where it takes CUDA
+    tensors.  No process outlives the phase, which must end within
+    DIST_SECONDS."""
+    t0 = time.monotonic()
+    ops.reset_launch_counts()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        nccl = dist_checks(0, 1, dev)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.monotonic() - t0
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    try:
+        ctx = mp.start_processes(dist_rank, args=(DIST_WORLD, str(DIST_DIR / "rdzv"),
+                                                  str(DIST_DIR)),
+                                 nprocs=DIST_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() - t0 > DIST_SECONDS:
+                    fail(f"dist: the gloo ranks did not end within {DIST_SECONDS} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+        if any(p.is_alive() for p in ctx.processes):
+            fail("dist: a gloo rank outlived the phase")
+        ranks = [json.loads((DIST_DIR / f"{r}.json").read_text()) for r in range(DIST_WORLD)]
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    gloo_cuda = [r["gloo_cuda_compressed_psum"] for r in ranks]
+    for r in gloo_cuda:
+        if r["ran"] and r["max_abs_err"] > r["block_scale"]:
+            fail(f"dist: gloo compressed_psum on the card {r}")
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        fail(f"dist: launched {launches}; the runtime runs through no kernel")
+    line = {"phase": "dist", "nccl_world_1": {"backend": backend, **nccl, "seconds": nccl_s},
+            "gloo_host_world": DIST_WORLD, "gloo_host_ranks": [r["cpu"] for r in ranks],
+            "gloo_cuda_compressed_psum_ran": all(r["ran"] for r in gloo_cuda),
+            "gloo_cuda_compressed_psum": gloo_cuda, "launches": launches,
+            "seconds": time.monotonic() - t0}
+    if line["seconds"] > DIST_SECONDS:
+        fail(f"dist: took {line['seconds']:.1f} s, past {DIST_SECONDS} s")
+    return line
+
+
 # the phases ``--only`` runs alone: (args, device, generator) -> its line
 ONLY = {
     "train": lambda args, dev, gen: train_phase(args.seed, dev, gen),
     "lm_moe": lambda args, dev, gen: lm_moe(args.seed, dev, gen),
     "remote": lambda args, dev, gen: remote(args.seed),
+    "gnn": lambda args, dev, gen: gnn_phase(args.seed, dev, gen),
+    "dist": lambda args, dev, gen: dist_phase(args.seed, dev),
     "k2_timings": lambda args, dev, gen: {
         "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
     "k4_timings": lambda args, dev, gen: {
@@ -2787,6 +3232,12 @@ def main() -> None:
     # needs 58 GB of the card
     trained = train_phase(args.seed, dev, gen)
     after(trained)
+
+    # the GCN's four graph shapes (ogb_products' full batch peaks at several
+    # GB), then the distributed runtime; both free all they hold before
+    # lm_decode_32k
+    after(gnn_phase(args.seed, dev, gen))
+    after(dist_phase(args.seed, dev))
 
     generated = lm_generate(args.seed, dev, gen)
     after(generated)

@@ -1,14 +1,16 @@
 """Config registry of the port: the eight DeepRecInfra paper models, the
 rest of the recsys zoo (xDeepFM, AutoInt, MIND, BERT4Rec), the three
-dense LMs (qwen2-0.5b, phi3-mini-3.8b, yi-34b) and the two mixture-of-experts
-LMs (granite-moe-1b-a400m, qwen3-moe-30b-a3b), with the input shapes of
-each family (``RECSYS_SHAPES``, ``LM_SHAPES``).
+dense LMs (qwen2-0.5b, phi3-mini-3.8b, yi-34b), the two mixture-of-experts
+LMs (granite-moe-1b-a400m, qwen3-moe-30b-a3b) and the GCN (gcn-cora), with
+the input shapes of each family (``RECSYS_SHAPES``, ``LM_SHAPES``,
+``GNN_SHAPES``).
 
 ``--arch <id>`` in the port's entry points resolves through ``get``.
 """
 from repro_torch.configs import (  # noqa: F401 — registration side effects
     autoint,
     bert4rec,
+    gcn_cora,
     granite_moe_1b_a400m,
     mind,
     paper_models,
@@ -21,8 +23,11 @@ from repro_torch.configs import (  # noqa: F401 — registration side effects
 from repro_torch.configs.registry import ArchSpec, get, list_archs  # noqa: F401
 from repro_torch.configs.shapes import (  # noqa: F401
     FULL_ATTENTION_SKIPS,
+    GNN_SHAPES,
     LM_SHAPES,
     RECSYS_SHAPES,
+    GNNShape,
     LMShape,
     RecShape,
+    shapes_for_family,
 )

@@ -10,7 +10,7 @@ _REGISTRY: dict[str, "ArchSpec"] = {}
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                     # recsys (paper models + zoo) | lm (gnn: a later slice)
+    family: str                     # lm | gnn | recsys (paper models + zoo)
     config: Any                     # full (published) config
     smoke_config: Any               # reduced config for CPU smoke tests
     source: str                     # citation of the published config

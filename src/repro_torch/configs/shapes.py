@@ -1,9 +1,11 @@
 """Input-shape sets: for the recommendation family the batch of a request
 or a pass and the candidate count of retrieval scoring; for the LMs the
-sequence (or KV cache) length and the batch."""
+sequence (or KV cache) length and the batch; for the GNN the graph (full
+batch, sampled minibatch, or a batch of small graphs)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,3 +43,36 @@ RECSYS_SHAPES = {
     "serve_bulk": RecShape("serve_bulk", 262_144, "serve"),
     "retrieval_cand": RecShape("retrieval_cand", 1, "retrieval", 1_000_000),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str                       # full | minibatch | batched
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    n_classes: int = 0
+    batch_nodes: int = 0
+    fanouts: Sequence[int] = ()
+    batch: int = 0                  # batched-small-graphs
+    nodes_per_graph: int = 0
+    edges_per_graph: int = 0
+
+
+GNN_SHAPES = {
+    "full_graph_sm": GNNShape("full_graph_sm", "full", n_nodes=2_708,
+                              n_edges=10_556, d_feat=1_433, n_classes=7),
+    # Reddit-scale sampled training (d_feat 602 per the source dataset)
+    "minibatch_lg": GNNShape("minibatch_lg", "minibatch", n_nodes=232_965,
+                             n_edges=114_615_892, d_feat=602, n_classes=41,
+                             batch_nodes=1_024, fanouts=(15, 10)),
+    "ogb_products": GNNShape("ogb_products", "full", n_nodes=2_449_029,
+                             n_edges=61_859_140, d_feat=100, n_classes=47),
+    "molecule": GNNShape("molecule", "batched", batch=128, nodes_per_graph=30,
+                         edges_per_graph=64, d_feat=16, n_classes=2),
+}
+
+
+def shapes_for_family(family: str) -> dict:
+    return {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES, "gnn": GNN_SHAPES}[family]

@@ -1,5 +1,6 @@
-"""Synthetic recommendation batches with a planted learnable signal, and
-LM token streams.
+"""Synthetic recommendation batches with a planted learnable signal, LM
+token streams, and graphs (community-structured random graphs, their CSR,
+batches of small graphs).
 
 Everything here is numpy on the host: a serving runtime pads a request on
 the host and moves the padded request to the device in one step.
@@ -101,3 +102,64 @@ def lm_batch(rng: np.random.Generator, cfg: LMConfig, batch: int, seq: int) -> d
         nxt = (toks[:, t] * 31 + 17) % v
         toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
     return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+
+
+# --------------------------------------------------------------------- gnn
+
+
+def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,
+                 d_feat: int, n_classes: int) -> dict:
+    """Community-structured random graph: features and labels correlate, so
+    GCN training measurably improves accuracy.  x (N, d_feat) float32,
+    edge_index (2, E) int32, labels (N,) int32, train_mask (N,) bool; draws
+    from ``rng`` in the JAX package's order, so one seed gives both packages
+    the same graph."""
+    comm = rng.integers(0, n_classes, size=n_nodes)
+    # ~80% intra-community edges
+    src = rng.integers(0, n_nodes, size=n_edges)
+    intra = rng.random(n_edges) < 0.8
+    dst = np.where(
+        intra,
+        _same_comm_partner(rng, comm, src, n_classes, n_nodes),
+        rng.integers(0, n_nodes, size=n_edges))
+    x = np.eye(n_classes, dtype=np.float32)[comm]
+    x = np.pad(x, ((0, 0), (0, max(0, d_feat - n_classes))))[:, :d_feat]
+    x = x + rng.normal(scale=0.5, size=x.shape).astype(np.float32)
+    mask = rng.random(n_nodes) < 0.6
+    return {"x": x, "edge_index": np.stack([src, dst]).astype(np.int32),
+            "labels": comm.astype(np.int32), "train_mask": mask}
+
+
+def _same_comm_partner(rng, comm, src, n_classes, n_nodes):
+    # a random node of src's community: nodes are unordered, so resample
+    # from the nodes with a matching label
+    order = np.argsort(comm, kind="stable")
+    sorted_comm = comm[order]
+    starts = np.searchsorted(sorted_comm, np.arange(n_classes), side="left")
+    ends = np.searchsorted(sorted_comm, np.arange(n_classes), side="right")
+    c = comm[src]
+    lo, hi = starts[c], np.maximum(ends[c], starts[c] + 1)
+    pick = lo + (rng.random(len(src)) * (hi - lo)).astype(np.int64)
+    return order[np.minimum(pick, n_nodes - 1)]
+
+
+def graph_to_csr(n_nodes: int, edge_index: np.ndarray):
+    """(indptr (N + 1,), indices (E,)): each node's sources, edges sorted by
+    destination with a stable sort."""
+    src, dst = np.asarray(edge_index)
+    order = np.argsort(dst, kind="stable")
+    indices = src[order]
+    indptr = np.searchsorted(dst[order], np.arange(n_nodes + 1))
+    return indptr, indices
+
+
+def molecule_batch(rng: np.random.Generator, batch: int, n_nodes: int,
+                   n_edges: int, d_feat: int, n_classes: int) -> dict:
+    """``batch`` small random graphs: x (G, N, F) float32, edge_index (G, 2,
+    E) int32, node_mask (G, N) bool, labels (G,) int32; the label is the
+    sign of the mean feature (learnable)."""
+    x = rng.normal(size=(batch, n_nodes, d_feat)).astype(np.float32)
+    ei = rng.integers(0, n_nodes, size=(batch, 2, n_edges)).astype(np.int32)
+    mask = np.ones((batch, n_nodes), bool)
+    labels = (x.mean(axis=(1, 2)) > 0).astype(np.int32)
+    return {"x": x, "edge_index": ei, "node_mask": mask, "labels": labels}

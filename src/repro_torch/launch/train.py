@@ -2,13 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rmc1 --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --device cpu
 
 Runs on the card unless ``--device cpu`` is given (the CPU takes the
 kernels' plain versions).  Smoke configs by default, so the launcher is
 usable anywhere; ``--full`` uses the published config.  Recommendation
 models train with the production split (adagrad on the tables, AdamW on
-the dense towers), dense LMs with AdamW; both clip the gradient's global
-norm at 10.
+the dense towers), dense LMs with AdamW, and the GCN with AdamW, full-batch
+on one community-structured random graph of 400 nodes and 3,200 edges, as
+the reference does; all clip the gradient's global norm at 10.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from repro_torch.configs import get
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve
-from repro_torch.models import lm, recsys
+from repro_torch.models import gnn, lm, recsys
 from repro_torch.serve.runtime import to_device
 from repro_torch.train import optim
 from repro_torch.train.loop import TrainState, train
@@ -43,9 +45,9 @@ def setup(arch: str, *, full: bool, batch: int, seq: int, device: torch.device, 
         params = lm.init(gen, cfg, device=device)
         batches = iter(lambda: to_device(syn.lm_batch(rng, cfg, batch, seq), device), None)
         return params, (lambda p, b: lm.loss_fn(p, cfg, b)), batches, optim.adamw(3e-4)
-    raise NotImplementedError(
-        f"{arch}: the {spec.family} family is not ported yet (models/gnn.py, ROADMAP.md "
-        f"queue 1 item 3)")
+    params = gnn.init(gen, cfg, device=device)
+    g = to_device(syn.random_graph(rng, 400, 3200, cfg.d_feat, cfg.n_classes), device)
+    return params, (lambda p, b: gnn.loss_fn(p, cfg, b)), iter(lambda: g, None), optim.adamw(1e-2)
 
 
 def main(argv: list[str] | None = None) -> TrainState:

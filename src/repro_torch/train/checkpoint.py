@@ -12,6 +12,13 @@ Leaves are matched by path, so a parameter tree that the JAX package's
 round.  bfloat16 leaves are stored as their 16-bit patterns (numpy has no
 bfloat16) under the dtype name ``bfloat16``, the bytes the reference
 writes for them.
+
+**Elastic restore.** A ``DTensor`` leaf is saved as its full logical array
+(``full_tensor()``, a collective every rank joins), so a checkpoint written
+on one mesh restores onto another of any size: ``restore(..., mesh=,
+placements=)`` lays each leaf onto the current mesh.  With a process group
+initialised, every rank gathers and rank 0 alone writes; the others wait
+for it at a barrier.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.utils import leaves_with_paths, tree_map
 
@@ -31,6 +40,8 @@ _MANIFEST = "manifest.json"
 
 
 def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().contiguous().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -44,8 +55,19 @@ def _sha256(a: np.ndarray) -> str:
 
 def save(ckpt_dir: str, step: int, tree: PyTree, *, keep: int = 3) -> str:
     """Atomically save ``tree`` as ``<ckpt_dir>/step_<step>``; prune old ones."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    leaves = [(key, *_to_numpy(leaf)) for key, leaf in leaves_with_paths(tree)]
+    if dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, leaves, keep)
+        dist.barrier()
+    else:
+        _write(ckpt_dir, final, step, leaves, keep)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, leaves, keep: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -53,8 +75,7 @@ def save(ckpt_dir: str, step: int, tree: PyTree, *, keep: int = 3) -> str:
 
     manifest = {"step": step, "leaves": []}
     arrays = {}
-    for i, (key, leaf) in enumerate(leaves_with_paths(tree)):
-        arr, dtype = _to_numpy(leaf)
+    for i, (key, arr, dtype) in enumerate(leaves):
         name = f"leaf_{i:05d}"
         arrays[name] = arr
         manifest["leaves"].append({"key": key, "name": name, "shape": list(arr.shape),
@@ -68,7 +89,6 @@ def save(ckpt_dir: str, step: int, tree: PyTree, *, keep: int = 3) -> str:
 
     for s in all_steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:010d}"), ignore_errors=True)
-    return final
 
 
 def all_steps(ckpt_dir: str) -> list[int]:
@@ -90,11 +110,17 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, target: PyTree, *, step: int | None = None,
+            mesh=None, placements: dict | None = None,
             verify: bool = True) -> tuple[PyTree, int]:
     """Restore into the structure of ``target``: every leaf becomes a new
     tensor of the target leaf's dtype, on its device.  Raises ``KeyError``
     for a leaf the checkpoint lacks, ``IOError`` for a checksum that does not
-    match, ``ValueError`` for a shape that does not."""
+    match, ``ValueError`` for a shape that does not.
+
+    With ``mesh`` and ``placements`` (``{path: placements}``, e.g. from
+    ``distributed.sharding.to_placements``) every leaf instead becomes a
+    DTensor laid onto the current mesh (the elastic-reshard path: a
+    checkpoint written on N ranks restores onto M); every rank calls it."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -117,6 +143,9 @@ def restore(ckpt_dir: str, target: PyTree, *, step: int | None = None,
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
+            if mesh is not None:
+                return distribute_tensor(t.to(device=mesh.device_type, dtype=leaf.dtype),
+                                         mesh, placements[key])
             return t.to(device=leaf.device, dtype=leaf.dtype)
 
         return tree_map(one, target, with_path=True), step

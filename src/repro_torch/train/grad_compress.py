@@ -5,14 +5,17 @@ float32 (2x against bfloat16); error feedback carries what quantisation
 lost into the next step, so the compressed optimiser stays unbiased in the
 long run [1-bit Adam / EF-SGD lineage].
 
-The all-reduce itself (the reference's ``compressed_psum``) needs the
-port's collectives and comes with its distributed tier.
+``compressed_psum`` is the data-parallel mean itself over a
+``torch.distributed`` group: a shared per-block scale from an all-reduce
+(MAX), the int8 payload summed exactly in int32 by an all-reduce (SUM),
+dequantised with the shared scales and divided by the group's size.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils import leaves_with_paths, tree_map
 
@@ -62,3 +65,34 @@ def decompress_grads(qtree: PyTree, like: PyTree) -> PyTree:
     qs = dict(leaves_with_paths(qtree))
     return tree_map(lambda k, g: dequantize_int8(qs[k + "[0]"], qs[k + "[1]"], g.shape, g.dtype),
                     like, with_path=True)
+
+
+def compressed_psum(grads: PyTree, group, residual: PyTree) -> tuple[PyTree, PyTree]:
+    """int8-compressed data-parallel mean over ``group`` (``None``: the
+    default group) with error feedback: (mean tree in the grads' dtypes,
+    this rank's new residual, float32).
+
+    Quantise (grads + residual) locally with the per-block scale shared by
+    every rank (max over the group of each block's largest magnitude, /127),
+    all-reduce the int8 payload accumulated in int32 (exact: no overflow
+    below 2^23 ranks), then dequantise with the shared scales.  The residual
+    keeps what this rank's quantisation lost."""
+    n = dist.get_world_size(group)
+    res = dict(leaves_with_paths(residual))
+    out = {}
+    for k, g in leaves_with_paths(grads):
+        tgt = g.float() + res[k]
+        numel = tgt.numel()
+        flat = torch.nn.functional.pad(tgt.reshape(-1), (0, (-numel) % _BLOCK))
+        blocks = flat.reshape(-1, _BLOCK)
+        gmax = blocks.abs().amax(dim=1, keepdim=True)
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        scale = gmax / 127.0 + 1e-12
+        q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+        qsum = q.to(torch.int32)
+        dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+        mean = (qsum.float() * scale).reshape(-1)[:numel].reshape(g.shape) / float(n)
+        deq_local = (q.float() * scale).reshape(-1)[:numel].reshape(g.shape)
+        out[k] = mean.to(g.dtype), tgt - deq_local
+    return (tree_map(lambda k, _: out[k][0], grads, with_path=True),
+            tree_map(lambda k, _: out[k][1], grads, with_path=True))

@@ -631,3 +631,115 @@ def test_remote_worker_serves_on_the_card(dev):
     x = torch.from_numpy(make_batch(16, -1)["x"])
     torch.testing.assert_close(apply_fn({"x": x.to(dev)}).cpu(), cpu_fn({"x": x}),
                                rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ the GCN
+
+
+def _gcn_on(dev, cfg, g: dict, loss_name: str = "loss_fn"):
+    from repro_torch.models import gnn
+    from repro_torch.train.microbatch import value_and_grad
+    from repro_torch.utils import leaves_with_paths
+    params = gnn.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = torch.utils._pytree.tree_map(lambda x: x.to(dev), params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+    loss, grads = value_and_grad(lambda p, b: getattr(gnn, loss_name)(p, cfg, b), params, batch)
+    return loss.cpu(), [(k, v.cpu()) for k, v in leaves_with_paths(grads)]
+
+
+@pytest.mark.parametrize("shape", ["full_graph_sm", "molecule"])
+def test_gcn_on_gpu_matches_cpu_and_repeats_to_the_bit(dev, shape):
+    """gcn-cora at Cora's shape (full batch) and at the molecule batch: the
+    loss and every gradient on the card against the CPU within 1e-4, and a
+    second run on the card gives the same bits (the sums over edges run in
+    a fixed order)."""
+    from repro_torch.configs import gcn_cora
+    s = configs.GNN_SHAPES[shape]
+    cfg = gcn_cora.config_for_shape(s)
+    rng = np.random.default_rng(0)
+    if s.kind == "full":
+        g, name = syn.random_graph(rng, s.n_nodes, s.n_edges, cfg.d_feat, cfg.n_classes), "loss_fn"
+    else:
+        g, name = syn.molecule_batch(rng, s.batch, s.nodes_per_graph, s.edges_per_graph,
+                                     cfg.d_feat, cfg.n_classes), "graph_loss_fn"
+    want_loss, want = _gcn_on(torch.device("cpu"), cfg, g, name)
+    loss, got = _gcn_on(dev, cfg, g, name)
+    again_loss, again = _gcn_on(dev, cfg, g, name)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
+    assert torch.equal(loss, again_loss)
+    for (k, a), (_, w), (_, b) in zip(got, want, again):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4, msg=k)
+        assert torch.equal(a, b), k
+
+
+def test_gcn_blocks_on_gpu_match_cpu(dev):
+    """forward_blocks over sampled blocks on the card against the CPU."""
+    from repro_torch.models import gnn
+    cfg = configs.get("gcn-cora").smoke_config
+    g = syn.random_graph(np.random.default_rng(0), 500, 4000, cfg.d_feat, cfg.n_classes)
+    indptr, indices = syn.graph_to_csr(500, g["edge_index"])
+    blocks, ids = gnn.sample_neighbors(indptr, indices, np.arange(32), [5, 4],
+                                       np.random.default_rng(0))
+    params = gnn.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    want = gnn.forward_blocks(params, cfg, torch.from_numpy(g["x"][ids]), blocks)
+    params_d = torch.utils._pytree.tree_map(lambda x: x.to(dev), params)
+    got = gnn.forward_blocks(params_d, cfg, torch.from_numpy(g["x"][ids]).to(dev), blocks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ distributed, one NCCL rank
+
+
+@pytest.fixture
+def nccl_world_of_one(dev):
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_runtime_in_an_nccl_world_of_one(nccl_world_of_one):
+    """Each piece on CUDA tensors against its single-device meaning: the
+    ring all-gather is the identity, the overlapped and reduce-scatter
+    matmuls are x @ w, a one-stage pipeline is its stage, compressed_psum
+    stays within one block scale, the sharded MoE at m = 1 is apply_moe."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.layers import moe
+    from repro_torch.train import grad_compress as gc
+    from torch.distributed.tensor import distribute_tensor
+    dev = nccl_world_of_one
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn((16, 64), generator=gen).to(dev), torch.randn((64, 32), generator=gen).to(dev)
+    assert torch.equal(coll.ring_all_gather(x), x)
+    torch.testing.assert_close(coll.overlapped_all_gather_matmul(x, w), x @ w)
+    torch.testing.assert_close(coll.reduce_scatter_matmul(x, w), x @ w)
+    ws = torch.randn((1, 64, 64), generator=gen).to(dev) * 0.1
+    fwd = pipe.make_pipelined_fn(lambda w_, h: torch.tanh(h @ w_), num_microbatches=4)
+    torch.testing.assert_close(fwd(ws, x), torch.tanh(x @ ws[0]))
+    g = torch.randn((4196,), generator=gen).to(dev)
+    mean, res = gc.compressed_psum({"g": g}, None, {"g": torch.zeros_like(g)})
+    assert float((mean["g"] - g).abs().max()) <= float(g.abs().max()) / 127
+    torch.testing.assert_close(mean["g"] + res["g"], g, rtol=0, atol=1e-6)
+
+    cfg = configs.get("granite-moe-1b-a400m").config
+    mesh = mesh_lib.make_host_mesh(1, 1)
+    params = torch.utils._pytree.tree_map(lambda t: t.to(dev), moe.init_moe(
+        gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, device="cpu"))
+    experts = shd.to_placements(mesh, ("model", None, None))
+    sharded = {"router": params["router"],
+               **{k: distribute_tensor(params[k], mesh, experts) for k in ("wg", "wu", "wd")}}
+    xm = torch.randn((4, 8, cfg.d_model), generator=gen).to(dev)
+    y, aux = moe.make_sharded_moe(mesh, top_k=cfg.top_k)(sharded, xm)
+    want, want_aux = moe.apply_moe(params, xm, top_k=cfg.top_k)
+    torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(aux["aux_loss"], want_aux["aux_loss"], rtol=2e-5, atol=0)
+    assert float(aux["dropped_frac"]) == float(want_aux["dropped_frac"])

@@ -165,6 +165,17 @@ def test_from_jax_params_keeps_tree_and_dtypes():
     # a 0-d integer array is a static int of the JAX tree, not a weight
     assert compat.from_jax_params({"n": np.asarray(5)}, device="cpu")["n"] == 5
     assert isinstance(compat.from_jax_params(np.int32(3), device="cpu"), int)
+    # a GCN's "layers" is a list of layers of different widths: carried as it
+    # is, not unstacked
+    from repro.models import gnn as jax_gnn
+    gcn = jax.tree.map(np.asarray, jax_gnn.init(jax.random.PRNGKey(0), jax_gnn.GCNConfig(
+        name="g", n_layers=3, d_feat=5, d_hidden=4, n_classes=3)))
+    out = compat.from_jax_params(gcn, device="cpu")
+    assert isinstance(out["layers"], list) and len(out["layers"]) == 3
+    for got, want in zip(out["layers"], gcn["layers"]):
+        assert sorted(got) == ["b", "w"]
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(got[k].numpy(), want[k])
 
 
 # ------------------------------------------------------------ the recsys zoo
