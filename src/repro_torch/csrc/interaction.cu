@@ -274,90 +274,198 @@ int launch_ks(const Args& a, int ks, cudaStream_t s) {
 // max(i,j)(max(i,j)-1)/2 + min(i,j): (S + S^T) X with S the strict lower
 // triangle the forward packed.  It is what the reference's autodiff of the
 // Gram product and the triangle gather gives; the TPU kernel has no backward
-// of its own.  Products and sums are float32, in ascending j, so a launch
-// gives the same bits every time; the result is stored in the input's type.
+// of its own.  Products and sums are float32, in ascending j (fmaf over a
+// full row of G, its zero diagonal included), so a launch gives the same
+// bits every time; the result is stored in the input's type.
 //
 // What bounds it: bytes.  At DLRM-RMC2's shape (B = 1024, F = 41, D = 32,
 // float32) it reads 5.4 MB of features and 3.4 MB of gradients and writes
-// 5.4 MB, against 110 MFLOP.  The output is (F, D), not the forward's pairs,
-// so the forward's plan does not carry over: a block takes S samples (from
-// kernels/interaction.py::backward_plan), unpacks each sample's gradients
-// into a full symmetric (F, F) matrix G with a zero diagonal and widens its
-// (F, D) slab to float32, both in shared memory; a thread then owns one
-// column d and R rows of dX, reading X[j, d] once for its R rows and G's
-// rows as warp-wide broadcasts (neighbouring threads take neighbouring d).
-constexpr int BWD_ROWS = 4;  // rows of dX a thread owns (kernels/interaction.py's BWD_ROWS)
+// 5.4 MB, against 110 MFLOP.  The first design (a block a sample) left each
+// block's loads, unpack and products in turn with nothing in flight between
+// them, and unpacked with a division and a modulo per element.  This one:
+//
+//   * a grid of about one wave (kernels/interaction.py::backward_plan); each
+//     block walks the samples blockIdx.x, + gridDim.x, ...;
+//   * a sample's packed gradient and its (F, D) slab, each one contiguous
+//     range, come into shared memory by 16-byte cp.async copies, double
+//     buffered: the next sample's copies are in flight while the block
+//     unpacks and multiplies the current one.  A range that starts off a
+//     16-byte boundary (bfloat16 gradients of odd samples) is copied from the
+//     boundary below and read from its offset; a last 16 bytes that would
+//     pass the tensor's end are copied element by element.  Inputs whose
+//     base address is off a 16-byte boundary take a scalar path instead;
+//   * G, the full (F, F) matrix, is unpacked through a pair-index table the
+//     block builds once (-1 on the diagonal and the padding), so the unpack
+//     is a table read, a shared read and a store;
+//   * a thread owns BWD_ROWS rows and BWD_COLS columns of dX (d and d + D/2):
+//     per four j it reads four 16-byte runs of G's rows (a warp-wide
+//     broadcast) and eight X[j, d] (neighbouring threads on neighbouring d).
+constexpr int BWD_ROWS = 4;     // rows of dX a thread owns (kernels/interaction.py's BWD_ROWS)
+constexpr int BWD_COLS = 2;     // columns of them (kernels/interaction.py's BWD_COLS)
+constexpr int BWD_BUFFERS = 2;  // samples in shared memory at once (kernels/interaction.py's)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// elements [first, first + n) of a tensor of `total` into shared memory at
+// dst (16-byte aligned): with vec, by 16-byte copies from the boundary at or
+// below the range's start, so element e lands at dst + (start & 15) + e *
+// sizeof(T); else one element at a time, element e at dst + e * sizeof(T)
 template <typename T>
-__global__ void dot_interaction_backward_kernel(const T* __restrict__ grad,
-                                                const T* __restrict__ feats,
-                                                T* __restrict__ dfeats, int B, int F, int D,
-                                                int S) {
+__device__ __forceinline__ void stage_range(unsigned char* dst, const T* base, long long first,
+                                            int n, long long total, int vec) {
+    if (!vec) {
+        T* d = reinterpret_cast<T*>(dst);
+        for (int e = threadIdx.x; e < n; e += blockDim.x) d[e] = base[first + e];
+        return;
+    }
+    const uintptr_t a = reinterpret_cast<uintptr_t>(base + first);
+    const uintptr_t b = reinterpret_cast<uintptr_t>(base + first + n);
+    const uintptr_t end = reinterpret_cast<uintptr_t>(base + total);
+    const uintptr_t a0 = a & ~uintptr_t(15);
+    const int chunks = (int)((b - a0 + 15) >> 4);
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+        const uintptr_t g = a0 + 16 * (uintptr_t)c;
+        if (g + 16 <= end) {
+            cp_async16(dst + 16 * c, reinterpret_cast<const void*>(g));
+        } else {  // the tensor's last bytes: no read past its end
+            for (uintptr_t q = g; q < end; q += sizeof(T))
+                *reinterpret_cast<T*>(dst + (q - a0)) = *reinterpret_cast<const T*>(q);
+        }
+    }
+}
+
+// at most 64 registers a thread (kernels/interaction.py's BWD_REGISTERS)
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+    dot_interaction_backward_kernel(const T* __restrict__ grad, const T* __restrict__ feats,
+                                    T* __restrict__ dfeats, int B, int F, int D, int vec) {
     extern __shared__ __align__(16) unsigned char smem[];
-    float* sm = reinterpret_cast<float*>(smem);
-    const int groups = (F + BWD_ROWS - 1) / BWD_ROWS;
-    const int rows = groups * BWD_ROWS;       // G's rows, padded with zeros
-    const int per = rows * F + F * D;         // floats a sample holds
-    const long long b0 = (long long)blockIdx.x * S;
-    const int ns = (int)min((long long)S, (long long)B - b0);
-    const int P = F * (F - 1) / 2;
-    const T* g = grad + b0 * P;
-    const T* x = feats + b0 * F * D;
+    const int groups = (F + BWD_ROWS - 1) / BWD_ROWS, rows = groups * BWD_ROWS;
+    const int ldg = (F + 3) & ~3;  // G's row stride: 16-byte runs of four j
+    const int P = F * (F - 1) / 2, FD = F * D;
+    // a stage holds a sample's packed gradient, then its slab, each with 32
+    // bytes of slack for the offset of a range that starts off a boundary
+    const int sp = ((P * (int)sizeof(T) + 15) & ~15) + 32;
+    const int sx = ((FD * (int)sizeof(T) + 15) & ~15) + 32;
+    float* G = reinterpret_cast<float*>(smem);
+    int* pair_at = reinterpret_cast<int*>(smem + rows * ldg * 4);
+    unsigned char* stages = smem + 2 * rows * ldg * 4;
 
-    for (int e = threadIdx.x; e < ns * rows * F; e += blockDim.x) {
-        const int s = e / (rows * F), r = e - s * rows * F;
-        const int i = r / F, j = r - i * F;
-        float v = 0.f;
-        if (i < F && i != j) {
-            const int p = i > j ? i * (i - 1) / 2 + j : j * (j - 1) / 2 + i;
-            v = to_float(g[(long long)s * P + p]);
-        }
-        sm[s * per + r] = v;
+    for (int e = threadIdx.x; e < rows * ldg; e += blockDim.x) {  // once: the pair-index table
+        const int i = e / ldg, j = e - i * ldg;
+        pair_at[e] = i < F && j < F && i != j ? (i > j ? i * (i - 1) / 2 + j : j * (j - 1) / 2 + i)
+                                              : -1;
     }
-    for (int e = threadIdx.x; e < ns * F * D; e += blockDim.x) {
-        const int s = e / (F * D);
-        sm[s * per + rows * F + (e - s * F * D)] = to_float(x[e]);
-    }
-    __syncthreads();
+    const long long total_g = (long long)B * P, total_x = (long long)B * FD;
+    auto issue = [&](long long s, int k) {
+        unsigned char* st = stages + (k % BWD_BUFFERS) * (sp + sx);
+        stage_range(st, grad, s * P, P, total_g, vec);
+        stage_range(st + sp, feats, s * FD, FD, total_x, vec);
+        cp_async_commit();
+    };
+    auto offset = [&](const T* base, long long first) {
+        return vec ? (int)(reinterpret_cast<uintptr_t>(base + first) & 15) : 0;
+    };
 
-    const int items = ns * groups * D;
-    for (int w = threadIdx.x; w < items; w += blockDim.x) {
-        const int s = w / (groups * D), r = w - s * groups * D;
-        const int ig = r / D, d = r - ig * D;
-        const float* G = sm + s * per + ig * BWD_ROWS * F;
-        const float* X = sm + s * per + rows * F;
-        float acc[BWD_ROWS];
-#pragma unroll
-        for (int q = 0; q < BWD_ROWS; ++q) acc[q] = 0.f;
-        for (int j = 0; j < F; ++j) {
-            const float xj = X[j * D + d];
-#pragma unroll
-            for (int q = 0; q < BWD_ROWS; ++q) acc[q] = fmaf(G[q * F + j], xj, acc[q]);
+    const int dh = (D + BWD_COLS - 1) / BWD_COLS;  // a thread's columns: d, d + dh, ...
+    const int items = groups * dh;
+    long long s = blockIdx.x;
+    if (s < B) issue(s, 0);
+    for (int k = 0; s < B; s += gridDim.x, ++k) {
+        if (s + gridDim.x < B) {
+            issue(s + gridDim.x, k + 1);  // the next sample's copies, in flight from here
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
-        T* out = dfeats + (b0 + s) * (long long)F * D;
-#pragma unroll
-        for (int q = 0; q < BWD_ROWS; ++q) {
-            const int i = ig * BWD_ROWS + q;
-            if (i < F) from_float(out + i * D + d, acc[q]);
+        __syncthreads();
+        const unsigned char* st = stages + (k % BWD_BUFFERS) * (sp + sx);
+        const T* pg = reinterpret_cast<const T*>(st + offset(grad, s * P));
+        const T* X = reinterpret_cast<const T*>(st + sp + offset(feats, s * FD));
+        for (int e = threadIdx.x; e < rows * ldg; e += blockDim.x) {
+            const int p = pair_at[e];
+            G[e] = p >= 0 ? to_float(pg[p]) : 0.f;
         }
+        __syncthreads();
+        T* out = dfeats + s * FD;
+        for (int w = threadIdx.x; w < items; w += blockDim.x) {
+            const int ig = w / dh, d = w - ig * dh;
+            const float* g0 = G + ig * BWD_ROWS * ldg;
+            int col[BWD_COLS];
+            bool has[BWD_COLS];
+#pragma unroll
+            for (int c = 0; c < BWD_COLS; ++c) {
+                has[c] = d + c * dh < D;
+                col[c] = has[c] ? d + c * dh : d;  // a column past D reads column d, unstored
+            }
+            float acc[BWD_ROWS][BWD_COLS];
+#pragma unroll
+            for (int q = 0; q < BWD_ROWS; ++q)
+#pragma unroll
+                for (int c = 0; c < BWD_COLS; ++c) acc[q][c] = 0.f;
+            int j = 0;
+            for (; j + 4 <= F; j += 4) {
+                float4 r[BWD_ROWS];
+#pragma unroll
+                for (int q = 0; q < BWD_ROWS; ++q)
+                    r[q] = *reinterpret_cast<const float4*>(g0 + q * ldg + j);
+                float x[4][BWD_COLS];
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+#pragma unroll
+                    for (int c = 0; c < BWD_COLS; ++c) x[t][c] = to_float(X[(j + t) * D + col[c]]);
+#pragma unroll
+                for (int q = 0; q < BWD_ROWS; ++q)
+#pragma unroll
+                    for (int c = 0; c < BWD_COLS; ++c) {
+                        acc[q][c] = fmaf(r[q].x, x[0][c], acc[q][c]);
+                        acc[q][c] = fmaf(r[q].y, x[1][c], acc[q][c]);
+                        acc[q][c] = fmaf(r[q].z, x[2][c], acc[q][c]);
+                        acc[q][c] = fmaf(r[q].w, x[3][c], acc[q][c]);
+                    }
+            }
+            for (; j < F; ++j) {
+#pragma unroll
+                for (int c = 0; c < BWD_COLS; ++c) {
+                    const float xj = to_float(X[j * D + col[c]]);
+#pragma unroll
+                    for (int q = 0; q < BWD_ROWS; ++q)
+                        acc[q][c] = fmaf(g0[q * ldg + j], xj, acc[q][c]);
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < BWD_ROWS; ++q) {
+                const int i = ig * BWD_ROWS + q;
+#pragma unroll
+                for (int c = 0; c < BWD_COLS; ++c)
+                    if (i < F && has[c]) from_float(out + i * D + col[c], acc[q][c]);
+            }
+        }
+        __syncthreads();  // the stage read here is the one the next sample after next fills
     }
 }
 
 template <typename T>
 int launch_backward(const void* grad, const void* feats, void* dfeats, int B, int F, int D,
-                    int S, int threads, int smem, cudaStream_t stream) {
+                    int grid, int threads, int smem, int vec, cudaStream_t stream) {
     auto kernel = dot_interaction_backward_kernel<T>;
     if (smem > 48 * 1024) {
         cudaError_t e =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<(B + S - 1) / S, threads, smem, stream>>>(
-        static_cast<const T*>(grad), static_cast<const T*>(feats), static_cast<T*>(dfeats), B,
-        F, D, S);
+    kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(grad),
+                                            static_cast<const T*>(feats),
+                                            static_cast<T*>(dfeats), B, F, D, vec);
     return (int)cudaGetLastError();
 }
 
@@ -385,20 +493,22 @@ extern "C" int dot_interaction_launch(const void* feats, void* out, int B, int F
     return (int)cudaErrorInvalidValue;
 }
 
+
 // K2-bwd.  grad (B, F(F-1)/2), feats and dfeats (B, F, D), all in `dtype`
-// (0 = float32, 1 = bfloat16) and contiguous; samples (S), threads and smem
-// (dynamic shared bytes) come from kernels/interaction.py::backward_plan.
-// Returns cudaGetLastError() after the launch.
+// (0 = float32, 1 = bfloat16) and contiguous; grid, threads and smem
+// (dynamic shared bytes) come from kernels/interaction.py::backward_plan;
+// vec 1 when grad and feats both start on a 16-byte boundary (the
+// 16-byte copy path), else 0.  Returns cudaGetLastError() after the launch.
 extern "C" int dot_interaction_backward_launch(const void* grad, const void* feats,
                                                void* dfeats, int B, int F, int D, int dtype,
-                                               int samples, int threads, int smem,
+                                               int grid, int threads, int smem, int vec,
                                                void* stream) {
     if (B == 0 || F == 0 || D == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return launch_backward<float>(grad, feats, dfeats, B, F, D, samples, threads, smem, s);
+        return launch_backward<float>(grad, feats, dfeats, B, F, D, grid, threads, smem, vec, s);
     if (dtype == 1)
-        return launch_backward<__nv_bfloat16>(grad, feats, dfeats, B, F, D, samples, threads,
-                                              smem, s);
+        return launch_backward<__nv_bfloat16>(grad, feats, dfeats, B, F, D, grid, threads, smem,
+                                              vec, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -36,11 +36,21 @@ TILES_PER_BLOCK = 12
 # multiply-adds, and costs a full card its shuffles
 WORK_PER_SM = 256
 
-# rows of dX a K2-bwd thread owns (csrc's BWD_ROWS)
+# rows and columns of dX a K2-bwd thread owns (csrc's BWD_ROWS, BWD_COLS):
+# a block has ceil(F / BWD_ROWS) * ceil(D / BWD_COLS) threads, at most
+# MAX_THREADS
 BWD_ROWS = 4
-# a K2-bwd block takes samples until it has this many work items (a column
-# of BWD_ROWS rows each), and has at most MAX_THREADS threads
-BWD_ITEMS_PER_BLOCK = 256
+BWD_COLS = 2
+# samples a K2-bwd block holds in shared memory at once: the one it works on
+# and the next, whose copies are in flight meanwhile (csrc's BWD_BUFFERS)
+BWD_BUFFERS = 2
+# what one SM of the card holds, for K2-bwd's wave: threads, shared memory
+# (the CUDA driver reserves 1 KB a block), registers; and the registers a K2-bwd
+# thread may take (csrc's __launch_bounds__(MAX_THREADS, 2): 65,536 / 1,024)
+SM_THREADS = 2048
+SM_SHARED_BYTES = 233_472
+SM_REGISTERS = 65_536
+BWD_REGISTERS = 64
 
 launch_count = 0
 backward_launch_count = 0
@@ -172,37 +182,52 @@ def launch(feats: torch.Tensor, out: torch.Tensor, p: Plan, *, packed: bool) -> 
 
 
 class BackwardPlan(NamedTuple):
-    samples: int         # S, consecutive samples a block
+    buffers: int         # samples a block holds at once (BWD_BUFFERS)
     threads: int         # a block's threads, a multiple of 32
-    grid: int            # blocks, ceil(B / S)
+    grid: int            # blocks, about one wave; block k takes samples k, k + grid, ...
     smem: int            # dynamic shared memory of a block, bytes
 
 
-def backward_sample_bytes(f: int, d: int) -> int:
-    """Shared memory K2-bwd holds a sample in: G as (F rounded up to
-    BWD_ROWS) x F floats, and the (F, D) slab widened to float32."""
-    return 4 * (-(-f // BWD_ROWS) * BWD_ROWS * f + f * d)
+def backward_table_bytes(f: int) -> int:
+    """Shared memory K2-bwd keeps for the whole launch: G, the unpacked
+    (F rounded up to BWD_ROWS) x F matrix in float32 at a row stride of F
+    rounded up to 4, and the pair-index table of the same shape."""
+    return 2 * -(-f // BWD_ROWS) * BWD_ROWS * -(-f // 4) * 4 * 4
+
+
+def backward_sample_bytes(f: int, d: int, itemsize: int) -> int:
+    """Shared memory one of K2-bwd's buffers takes: a sample's packed
+    gradient and its (F, D) slab in their own type, each in whole 16-byte
+    chunks with 32 bytes of slack (a range that starts off a boundary is
+    copied from the boundary below)."""
+    return sum(-(-n * itemsize // 16) * 16 + 32 for n in (f * (f - 1) // 2, f * d))
 
 
 @functools.lru_cache(maxsize=1024)
-def backward_plan(b: int, f: int, d: int) -> BackwardPlan:
-    """How to launch K2-bwd on feats (B, F, D).  Raises ValueError, naming
-    shared memory, when one sample does not fit a block."""
-    per = backward_sample_bytes(f, d)
-    if per > MAX_SLAB_BYTES:
-        raise ValueError(f"a sample of F={f}, D={d} needs {per} bytes of shared memory in "
-                         f"the backward; a block has {MAX_SLAB_BYTES}")
-    items = -(-f // BWD_ROWS) * d
-    s = max(1, min(b, BWD_ITEMS_PER_BLOCK // max(items, 1), MAX_SLAB_BYTES // per))
-    threads = -(-min(s * items, MAX_THREADS) // 32) * 32
-    return BackwardPlan(samples=s, threads=threads, grid=-(-b // s), smem=s * per)
+def backward_plan(b: int, f: int, d: int, itemsize: int, sm_count: int) -> BackwardPlan:
+    """How to launch K2-bwd on feats (B, F, D) of ``itemsize``-byte elements
+    on a card of ``sm_count`` SMs: a thread for each BWD_COLS columns of each
+    BWD_ROWS rows (at most MAX_THREADS), and as many blocks as the card holds at once
+    by threads, registers and shared memory, but no more than B.  Raises
+    ValueError, naming shared memory, when the table and BWD_BUFFERS samples
+    do not fit a block."""
+    smem = backward_table_bytes(f) + BWD_BUFFERS * backward_sample_bytes(f, d, itemsize)
+    if smem > MAX_SLAB_BYTES:
+        raise ValueError(f"K2-bwd at F={f}, D={d} needs {smem} bytes of shared memory for "
+                         f"{BWD_BUFFERS} samples; a block has {MAX_SLAB_BYTES}")
+    items = -(-f // BWD_ROWS) * -(-d // BWD_COLS)
+    threads = -(-min(items, MAX_THREADS) // 32) * 32
+    per_sm = max(1, min(SM_THREADS // threads, SM_REGISTERS // (threads * BWD_REGISTERS),
+                        SM_SHARED_BYTES // (smem + 1024)))
+    return BackwardPlan(buffers=BWD_BUFFERS, threads=threads,
+                        grid=max(1, min(b, sm_count * per_sm)), smem=smem)
 
 
 def _backward_function():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load().dot_interaction_backward_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -211,14 +236,16 @@ def _backward_function():
 def launch_backward(grad: torch.Tensor, feats: torch.Tensor, out: torch.Tensor,
                     p: BackwardPlan) -> None:
     """grad (B, F(F-1)/2), feats and out (B, F, D), one dtype, contiguous on
-    one CUDA device; ``p`` is ``backward_plan``'s for this shape."""
+    one CUDA device; ``p`` is ``backward_plan``'s for this shape.  Inputs
+    that start off a 16-byte boundary take the kernel's scalar copy path."""
     global backward_launch_count
     b, f, d = feats.shape
+    vec = grad.data_ptr() % 16 == 0 and feats.data_ptr() % 16 == 0
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _backward_function()(grad.data_ptr(), feats.data_ptr(), out.data_ptr(), b, f, d,
-                                   DTYPE_CODE[feats.dtype], p.samples, p.threads, p.smem,
-                                   stream)
+                                   DTYPE_CODE[feats.dtype], p.grid, p.threads, p.smem,
+                                   int(vec), stream)
     if err != 0:
         raise RuntimeError(f"dot_interaction backward kernel launch failed: CUDA error {err}")
     with _count_lock:

@@ -122,7 +122,8 @@ def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor, vocab: int
     (B, F, D), idx (B, F, H) → (F, V, D) float32, dense and table-shaped;
     every lookup adds its bag's gradient row (÷H for ``mean``) into the row
     it read.  A CUDA tensor launches K1-bwd into a zeroed buffer (D <= 256;
-    the same bits every launch); a CPU tensor takes
+    the same bits every launch; scratch of about 16 bytes a lookup, sized by
+    the shapes alone, and no host synchronisation); a CPU tensor takes
     ``ref.embedding_bag_backward``."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"unknown pooling mode {mode!r}")
@@ -142,11 +143,16 @@ def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor, vocab: int
                          f"got {grad_out.shape[2]}")
     _require_contiguous("grad_out", grad_out)
     _require_contiguous("idx", idx)
-    grad = torch.zeros((idx.shape[1], vocab, grad_out.shape[2]), dtype=torch.float32,
-                       device=grad_out.device)
-    if grad_out.numel() and idx.shape[2]:
-        log_w = _eb.backward_warps(idx.shape[1], _ix.sm_count(grad_out.device.index))
-        _eb.launch_backward(grad_out, idx, grad, mean=(mode == "mean"), log_w=log_w)
+    b, f, h = idx.shape
+    d = grad_out.shape[2]
+    grad = torch.zeros((f, vocab, d), dtype=torch.float32, device=grad_out.device)
+    if grad_out.numel() and h:
+        plan = _eb.backward_plan(b, f, vocab, h, d, grad_out.element_size(),
+                                 _eb.backward_vectorized(grad_out))
+        scratch = {name: torch.empty(shape, dtype=dtype, device=grad_out.device)
+                   for name, (shape, dtype) in _eb.backward_scratch(plan, b, f, h, d).items()}
+        _eb.launch_backward(grad_out, idx, grad, mean=(mode == "mean"), plan=plan,
+                            scratch=scratch)
     return grad
 
 
@@ -225,7 +231,7 @@ def dot_interaction_backward(grad: torch.Tensor, feats: torch.Tensor) -> torch.T
         return ref.dot_interaction_backward(grad, feats)
     _require_contiguous("grad", grad)
     _require_contiguous("feats", feats)
-    plan = _ix.backward_plan(b, f, d)
+    plan = _ix.backward_plan(b, f, d, feats.element_size(), _ix.sm_count(feats.device.index))
     out = torch.empty_like(feats)
     if out.numel():
         _ix.launch_backward(grad, feats, out, plan)

@@ -273,6 +273,24 @@ def test_train_launch_check_refuses_an_off_by_one_count(off):
                                          steps)
 
 
+@pytest.mark.parametrize("drift", ["one_ulp", "one_step", "none"])
+def test_train_resume_check_is_bit_for_bit(drift):
+    """The resumed and stopped runs' losses must equal the straight run's
+    exactly: a loss one float32 ulp off, or one step's losses swapped, is
+    refused; the same values pass."""
+    straight = [0.6931471824645996, 0.6899, 0.68125, 0.6750001]
+    resumed = list(straight)
+    if drift == "one_ulp":
+        resumed[2] = float(np.nextafter(np.float32(resumed[2]), np.float32(1)))
+    elif drift == "one_step":
+        resumed[1], resumed[2] = resumed[2], resumed[1]
+    if drift == "none":
+        chip_smoke.check_same_bits("train resumed losses", resumed, straight)
+    else:
+        with pytest.raises(SystemExit, match="other losses"):
+            chip_smoke.check_same_bits("train resumed losses", resumed, straight)
+
+
 # ----------------------------------------------------------- the lm_moe gates
 
 

@@ -121,18 +121,79 @@ def test_embedding_bag_backward_kernel(dev, b, f, v, h, d, dtype, mode):
     _grad_close(got, ref.embedding_bag_backward(g.double(), idx, v, mode=mode))
 
 
+def _same_bits_under_graph_replay(call, eager):
+    """``call()``, the whole wrapper call, captured in a CUDA graph and
+    replayed, gives ``eager``'s bits (and the capture shows the call does
+    not synchronise with the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+
+
 def test_embedding_bag_backward_kernel_same_bits_every_launch(dev):
-    """No atomics: every row is summed by its one owning warp in the same
-    order, so RMC2's shape under Zipf ids gives the same bits twice, and a
-    table beyond D = 256 is refused."""
+    """No atomics: the lookups are sorted by row and each row is summed in
+    an order fixed by the data, so RMC2's shape under Zipf ids gives the
+    same bits on a second launch and under CUDA-graph replay of the whole
+    call, and a table beyond D = 256 is refused."""
     rng = np.random.default_rng(9)
     g = torch.from_numpy(rng.normal(size=(1024, 40, 32)).astype(np.float32)).to(dev)
     idx = torch.from_numpy(syn._zipf_ids(rng, (1024, 40, 80), 100_000).astype(np.int32)).to(dev)
     first = ops.embedding_bag_backward(g, idx, 100_000)
     assert torch.equal(ops.embedding_bag_backward(g, idx, 100_000), first)
+    ops.reset_launch_counts()
+    _same_bits_under_graph_replay(lambda: ops.embedding_bag_backward(g, idx, 100_000), first)
+    assert ops.launch_counts()["embedding_bag_backward"] == 2     # warm-up and capture: one each
     with pytest.raises(ValueError, match="D <= 256"):
         ops.embedding_bag_backward(torch.zeros((2, 1, 257), device=dev),
                                    torch.zeros((2, 1, 3), dtype=torch.int32, device=dev), 4)
+
+
+def test_embedding_bag_backward_kernel_at_rmc2_with_hot_rows(dev):
+    """RMC2's tables (40 x 10^6 x 32) at B = 1,024 under Zipf ids: row 0 of
+    each table takes about 4,100 lookups, dozens of the plan's chunks, so
+    its sum is split into partials and combined; every table's dense
+    gradient against the float64 plain version."""
+    from repro_torch.kernels import embedding_bag as eb
+    rng = np.random.default_rng(10)
+    b, f, v, h, d = 1024, 40, 1_000_000, 80, 32
+    g = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(syn._zipf_ids(rng, (b, f, h), v).astype(np.int32)).to(dev)
+    plan = eb.backward_plan(b, f, v, h, d, 4, eb.backward_vectorized(g))
+    assert int((idx == 0).sum(dim=(0, 2)).min()) > 8 * plan.chunk
+    got = ops.embedding_bag_backward(g, idx, v)
+    torch.cuda.synchronize()
+    for t in range(0, f, 8):                  # eight tables at a time: 256 MB of float64 each
+        _grad_close(got[t:t + 8], ref.embedding_bag_backward(g[:, t:t + 8].double(),
+                                                             idx[:, t:t + 8].contiguous(), v))
+
+
+@pytest.mark.parametrize("d", [1, 32, 33, 64, 130, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_kernel_widths(dev, d, dtype, mode):
+    """Every row width the kernel is instantiated for (16-byte vectors and
+    the scalar path; one lane group or a whole warp a row, one to eight
+    vectors a lane), bags of H = 150 > 128 lookups, and Zipf ids on 60 rows
+    so that row 0 spans many chunks: against the float64 plain version."""
+    rng = np.random.default_rng(11)
+    b, f, v, h = 37, 3, 60, 150
+    g = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(syn._zipf_ids(rng, (b, f, h), v).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    got = ops.embedding_bag_backward(g, idx, v, mode=mode)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["embedding_bag_backward"] == 1
+    _grad_close(got, ref.embedding_bag_backward(g.double(), idx, v, mode=mode))
+    assert torch.equal(ops.embedding_bag_backward(g, idx, v, mode=mode), got)
 
 
 @pytest.mark.parametrize("d", [1, 32, 130])
@@ -194,6 +255,46 @@ def test_dot_interaction_backward_kernel(dev, b, f, d, dtype):
     want = ref.dot_interaction_backward(g.double(), x.double())
     torch.testing.assert_close(got.double(), want, **_tol(dtype))
     assert torch.equal(ops.dot_interaction_backward(g, x), got)
+
+
+@pytest.mark.parametrize("b,f,d,offset", [(9, 5, 3, 15), (64, 11, 32, 1), (5, 41, 32, 1),
+                                          (1000, 41, 32, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interaction_backward_kernel_unaligned_start(dev, b, f, d, offset, dtype):
+    """grad and feats whose first element lies ``offset`` elements into
+    their storage, off a 16-byte boundary: the kernel takes its scalar copy
+    path and reads nothing outside either tensor."""
+    rng = np.random.default_rng(12)
+    p = f * (f - 1) // 2
+    xs = torch.from_numpy((rng.normal(size=offset + b * f * d) / d ** 0.5)
+                          .astype(np.float32)).to(dev, dtype)
+    gs = torch.from_numpy(rng.normal(size=offset + b * p).astype(np.float32)).to(dev, dtype)
+    x, g = xs[offset:].view(b, f, d), gs[offset:].view(b, p)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    got = ops.dot_interaction_backward(g, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), ref.dot_interaction_backward(g.double(), x.double()),
+                               **_tol(dtype))
+    assert torch.equal(ops.dot_interaction_backward(g, x), got)
+
+
+@pytest.mark.parametrize("b", [1000, 1024, 4099])
+def test_dot_interaction_backward_kernel_same_bits_under_graph_replay(dev, b):
+    """At RMC2's (F, D), B a multiple of the grid or not (each block walks
+    its samples at the grid's stride, the last ones short): the float64
+    plain version, a second launch and a CUDA-graph replay of the call."""
+    from repro_torch.kernels import interaction as ix
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy((rng.normal(size=(b, 41, 32)) / 32 ** 0.5).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(b, 820)).astype(np.float32)).to(dev)
+    plan = ix.backward_plan(b, 41, 32, 4, ix.sm_count(dev.index or 0))
+    assert plan.grid < b
+    got = ops.dot_interaction_backward(g, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), ref.dot_interaction_backward(g.double(), x.double()),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(ops.dot_interaction_backward(g, x), got)
+    _same_bits_under_graph_replay(lambda: ops.dot_interaction_backward(g, x), got)
 
 
 def test_dot_interaction_autograd_launches_k2_and_k2_bwd(dev):

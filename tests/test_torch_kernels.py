@@ -183,6 +183,11 @@ def test_interaction_constants_match_the_source():
     assert int(consts["TILE"]) == ix_kernel.TILE
     assert int(consts["MAX_THREADS"]) == ix_kernel.MAX_THREADS
     assert "__launch_bounds__(MAX_THREADS)" in src
+    assert int(consts["BWD_ROWS"]) == ix_kernel.BWD_ROWS
+    assert int(consts["BWD_COLS"]) == ix_kernel.BWD_COLS
+    assert int(consts["BWD_BUFFERS"]) == ix_kernel.BWD_BUFFERS
+    assert "__launch_bounds__(MAX_THREADS, 2)" in src          # K2-bwd: 64 registers a thread
+    assert ix_kernel.SM_REGISTERS // (ix_kernel.MAX_THREADS * 2) == ix_kernel.BWD_REGISTERS
     ks = [int(k) for k, t in re.findall(r"case (\d+): return launch<T, (\d+)>", src) if k == t]
     assert ks == [1, 2, 4, 8] and ks[-1] == ix_kernel.MAX_SPLITS
 
@@ -589,25 +594,239 @@ def test_empty_batch():
                                 torch.zeros(0, dtype=torch.int32)).shape == (0, 4, 8)
 
 
-@pytest.mark.parametrize("f,sms,want", [(40, 132, 64), (10, 132, 128), (1, 132, 128),
-                                        (26, 132, 128), (41, 132, 64), (200, 132, 16),
-                                        (5000, 132, 1)])
-def test_embedding_bag_backward_warps_a_table(f, sms, want):
-    """K1-bwd's plan: a power of two of warps a table, about 32 warps an SM
-    over all tables, at most 128 and at least 1."""
+# ------------------------------------------------------------ K1-bwd, K2-bwd
+
+
+# (b, f, v, h, d, itemsize, vectorized): RMC2 at the train phase's batch
+# and at train_batch's, RMC1, bfloat16, the scalar path at D = 130 and
+# 256, one lookup a bag, 2^20 and 2^30 rows (two and three passes), a tiny
+# table (one pass of one bit)
+BWD_PLANS = [(1024, 40, 1_000_000, 80, 32, 4, True),
+             (65_536, 40, 1_000_000, 80, 32, 4, True),
+             (1024, 10, 1_000_000, 80, 32, 4, True),
+             (64, 8, 5000, 20, 64, 2, True),
+             (33, 2, 100, 5, 130, 4, False),
+             (7, 3, 40, 1, 256, 4, False),
+             (9, 1, 1 << 20, 200, 33, 2, False),
+             (3, 2, 1 << 30, 7, 256, 4, True),
+             (5, 4, 2, 3, 1, 4, False)]
+
+
+@pytest.mark.parametrize("b,f,v,h,d,itemsize,vectorized", BWD_PLANS)
+def test_embedding_bag_backward_plan(b, f, v, h, d, itemsize, vectorized):
+    """K1-bwd's plan: the passes cover the rows' bits with at most 1,024
+    buckets a pass; the tiles and the chunks each cover a table's B·H
+    lookups once; a lane group covers a row with its vectors, and every
+    warp of the sum's blocks is whole groups; the scratch is sized by the
+    shapes alone, about 16 bytes a lookup; the division by H is exact."""
     from repro_torch.kernels import embedding_bag as eb
-    assert 1 << eb.backward_warps(f, sms) == want
+    p = eb.backward_plan(b, f, v, h, d, itemsize, vectorized)
+    n = b * h
+    bits = max(1, (v - 1).bit_length())
+    assert p.passes * p.digit_bits >= bits > (p.passes - 1) * p.digit_bits or p.passes == 1
+    assert 1 <= p.digit_bits <= eb.MAX_DIGIT_BITS and p.passes * p.digit_bits - bits < p.passes
+    assert p.tiles * eb.SORT_TILE >= n > (p.tiles - 1) * eb.SORT_TILE
+    assert p.chunks * p.chunk >= n > (p.chunks - 1) * p.chunk
+    assert eb.MIN_CHUNK <= p.chunk <= eb.MAX_CHUNK and p.chunk & (p.chunk - 1) == 0
+    assert p.group in (8, 16, 32) and p.chunk % p.group == 0 and 32 % p.group == 0
+    assert p.vec == (16 // itemsize if vectorized else 1)
+    assert p.cpv in (1, 2, 4, 8) and p.group * p.cpv * p.vec >= d
+    assert p.cpv == 1 or p.group == 32 and p.group * p.cpv // 2 * p.vec < d
+    assert p.blocks * eb.SUM_THREADS >= f * p.chunks * p.group > (p.blocks - 1) * eb.SUM_THREADS
+    scratch = eb.backward_scratch(p, b, f, h, d)
+    nbytes = sum(int(np.prod(shape)) * torch.tensor([], dtype=dt).element_size()
+                 for shape, dt in scratch.values())
+    assert nbytes <= f * n * (17 + 8 * d / p.chunk) + f * (8 * 1024 + 8 * d)
+    assert scratch["counts"][0] == ((f << p.digit_bits) * (p.tiles + 1),)   # counts, totals
+    i = np.unique(np.concatenate([np.arange(0, min(n, 3 * h + 5)), [n - 1, max(0, n - h)],
+                                  np.random.default_rng(0).integers(0, n, 1000)]))
+    np.testing.assert_array_equal((i * p.div_m) >> p.div_s, i // h)
 
 
-@pytest.mark.parametrize("b,f,d", [(1024, 41, 32), (1024, 11, 32), (7, 2, 1), (5, 41, 130),
-                                   (64, 27, 16)])
-def test_dot_interaction_backward_plan(b, f, d):
-    """K2-bwd's plan: whole samples a block within shared memory, threads a
-    multiple of 32 for the block's columns, every sample covered."""
-    from repro_torch.kernels import interaction as ix
-    p = ix.backward_plan(b, f, d)
-    assert p.smem == p.samples * ix.backward_sample_bytes(f, d) <= ix.MAX_SLAB_BYTES
-    assert p.threads % 32 == 0 and 32 <= p.threads <= ix.MAX_THREADS
-    assert p.grid * p.samples >= b > (p.grid - 1) * p.samples
+def test_embedding_bag_backward_plan_at_rmc2():
+    """RMC2's train step (B = 1,024): two passes of 10 bits over 10^6 rows,
+    chunks of 128 lookups, groups of 8 lanes (a 128-byte row as 16-byte
+    vectors), one chunk for each group an H100 SXM holds at once, 52 MB of
+    pairs; at train_batch's B = 65,536 the chunk grows to 2,048, so the
+    chunks' count grows 16x where the lookups grow 64x.  Row 0 of a table
+    (about 5 % of its lookups under Zipf ids) spans about 32 chunks."""
+    from repro_torch.kernels import embedding_bag as eb
+    p = eb.backward_plan(1024, 40, 1_000_000, 80, 32, 4, True)
+    assert (p.passes, p.digit_bits, p.tiles, p.chunk, p.chunks, p.group, p.cpv) == \
+        (2, 10, 20, 128, 640, 8, 1)
+    assert eb.backward_scratch(p, 1024, 40, 80, 32)["pairs"][0] == (2, 40 * 81_920)
+    big = eb.backward_plan(65_536, 40, 1_000_000, 80, 32, 4, True)
+    assert (big.chunk, big.chunks, big.tiles) == (2048, 2560, 1280)
+    hot = 81_920 * np.log(2) / np.log(1_000_000)
+    assert 30 < hot / p.chunk < 34
+
+
+def test_embedding_bag_backward_plan_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels import embedding_bag as eb
+    with pytest.raises(ValueError, match="D <= 256"):
+        eb.backward_plan(2, 1, 10, 3, 257, 4, False)
+    with pytest.raises(ValueError, match="lookups a table"):
+        eb.backward_plan(1 << 25, 1, 10, 64, 32, 4, True)
+
+
+def test_embedding_bag_backward_constants_match_the_source():
+    """The plan cuts the launch for the kernels' tile, buckets and blocks:
+    the Python constants must be csrc/embedding_bag.cu's."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_bag as eb
+    src = (_build.CSRC / "embedding_bag.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["SORT_THREADS"]) * int(consts["SORT_ITEMS"]) == eb.SORT_TILE
+    assert int(consts["MAX_DIGIT_BITS"]) == eb.MAX_DIGIT_BITS
+    assert int(consts["SUM_THREADS"]) == eb.SUM_THREADS
+    assert sorted(int(c) for c in re.findall(r"case (\d+): (?:if constexpr \(VEC [<=]+ \d\) )?"
+                                             r"K1B_LAUNCH\(\1\)", src)) == [1, 2, 4, 8]
+
+
+def _k1_bwd_model(g: np.ndarray, idx: np.ndarray, vocab: int, chunk: int, passes: int,
+                  digit_bits: int, mode: str) -> tuple[np.ndarray, dict]:
+    """K1-bwd's schedule in float64.  Each table's (row, bag) pairs in (b, h)
+    order are sorted by ``passes`` stable passes over ``digit_bits`` bits of
+    the row, lowest first; the sorted list is cut into chunks of ``chunk``;
+    each run of equal rows inside a chunk is summed in order and stored, a
+    run that crosses a chunk's first or last lookup leaves a head or a tail
+    partial, and the chunk a crossing run starts in adds its tail and the
+    next chunks' heads, in chunk order.  Every touched row is stored once.
+    Returns the (F, V, D) gradient and counts of what the schedule did."""
+    b, f, h = idx.shape
+    n = b * h
+    terms = g.astype(np.float64) / (h if mode == "mean" else 1)
+    out = np.zeros((f, vocab, g.shape[2]))
+    stats = {"stored": 0, "combined": 0, "longest_split": 0}
+    for t in range(f):
+        rows = idx[:, t, :].reshape(-1).astype(np.int64)
+        bags = np.repeat(np.arange(b), h)
+        order = np.arange(n)
+        for p in range(passes):
+            digit = (rows[order] >> (p * digit_bits)) & ((1 << digit_bits) - 1)
+            order = order[np.argsort(digit, kind="stable")]
+        r, bg = rows[order], bags[order]
+        assert np.all(np.diff(r) >= 0)                             # by row
+        assert np.all(np.diff(order)[np.diff(r) == 0] > 0)         # a row's lookups in (b, h) order
+        chunks = -(-n // chunk)
+        head, tail = {}, {}
+        written = set()
+
+        def store(row, value):
+            assert row not in written
+            written.add(row)
+            out[t, row] = value
+            stats["stored"] += 1
+
+        for c in range(chunks):
+            s, e = c * chunk, min(n, (c + 1) * chunk)
+            a = s
+            while a < e:
+                z = a
+                while z < e and r[z] == r[a]:
+                    z += 1
+                part = np.zeros(g.shape[2])
+                for k in range(a, z):
+                    part = part + terms[bg[k], t]
+                before = a == s and c > 0 and r[s - 1] == r[a]
+                goes_on = z == e and c + 1 < chunks and r[e] == r[a]
+                if before:
+                    head[c] = part
+                elif goes_on:
+                    tail[c] = part
+                else:
+                    store(r[a], part)
+                a = z
+        for c, acc in tail.items():
+            row, k = r[(c + 1) * chunk - 1], c + 1
+            while True:
+                acc = acc + head[k]
+                if k + 1 >= chunks or r[(k + 1) * chunk] != row:
+                    break
+                k += 1
+            store(row, acc)
+            stats["combined"] += 1
+            stats["longest_split"] = max(stats["longest_split"], k - c + 1)
+        assert written == set(np.unique(r).tolist())
+    return out, stats
+
+
+@pytest.mark.parametrize("ids,b,f,v,h,d,mode", [
+    ("zipf", 64, 3, 50, 40, 8, "sum"),        # row 0: ~18 % of 2,560 lookups, many chunks
+    ("zipf", 37, 2, 1000, 150, 5, "mean"),    # H > 128
+    ("uniform", 48, 2, 300, 20, 4, "sum"),
+    ("one_row", 9, 2, 20, 80, 3, "sum"),      # every lookup on row 0
+])
+def test_embedding_bag_backward_schedule_matches_ref_and_jax_grad(ids, b, f, v, h, d, mode):
+    """The plan's partition, chunks and combine (``_k1_bwd_model``, at the
+    plan's digits and at chunks of 64 and 32 lookups, so that hot rows span
+    many chunks) compute the gradient: against ref.embedding_bag_backward
+    and jax.grad of the reference's embedding bag, in float64 within 1e-12
+    of the plain version and the float32 sweep's 2e-5 of JAX."""
+    import jax
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.data import synthetic as syn
+    rng = np.random.default_rng(17)
+    if ids == "zipf":
+        idx = syn._zipf_ids(rng, (b, f, h), v).astype(np.int32)
+    elif ids == "uniform":
+        idx = rng.integers(0, v, size=(b, f, h)).astype(np.int32)
+    else:
+        idx = np.zeros((b, f, h), np.int32)
+    g = rng.normal(size=(b, f, d)).astype(np.float32)
+    tables = rng.normal(size=(f, v, d)).astype(np.float32)
+    want = ref.embedding_bag_backward(torch.from_numpy(g).double(), torch.from_numpy(idx), v,
+                                      mode=mode).numpy()
+
+    def pooled(t):
+        return jnp.stack([jax_ref.embedding_bag(t[i], idx[:, i], mode=mode) for i in range(f)], 1)
+
+    jax_want = np.asarray(jax.grad(lambda t: jnp.vdot(pooled(t), g))(jnp.asarray(tables)))
+    p = eb.backward_plan(b, f, v, h, d, 4, True)
+    for chunk in sorted({p.chunk, 64, 32}):
+        got, stats = _k1_bwd_model(g, idx, v, chunk, p.passes, p.digit_bits, mode)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got, jax_want, rtol=2e-5, atol=2e-5)
+        if ids != "uniform":
+            assert stats["longest_split"] * chunk >= (idx[:, 0] == 0).sum() - chunk
+    # one pass of all the bits orders the lookups the same as the plan's passes
+    one, _ = _k1_bwd_model(g, idx, v, 32, 1, max(1, (v - 1).bit_length()), mode)
+    np.testing.assert_array_equal(one, _k1_bwd_model(g, idx, v, 32, p.passes, p.digit_bits,
+                                                     mode)[0])
+
+
+@pytest.mark.parametrize("b,f,d,itemsize", [(1024, 41, 32, 4), (1024, 11, 32, 4), (7, 2, 1, 4),
+                                            (5, 41, 130, 4), (64, 27, 16, 2),
+                                            (65_536, 41, 32, 4)])
+def test_dot_interaction_backward_plan(b, f, d, itemsize):
+    """K2-bwd's plan: the table and BWD_BUFFERS samples within a block's
+    shared memory; threads a multiple of 32 for the block's columns; about
+    one wave of blocks and no more than B, so every block has a sample and
+    walks the rest at the grid's stride."""
+    p = ix_kernel.backward_plan(b, f, d, itemsize, 132)
+    assert p.buffers == ix_kernel.BWD_BUFFERS == 2
+    stage = ix_kernel.backward_sample_bytes(f, d, itemsize)
+    assert p.smem == ix_kernel.backward_table_bytes(f) + 2 * stage <= ix_kernel.MAX_SLAB_BYTES
+    assert stage >= (f * (f - 1) // 2 + f * d) * itemsize + 30 and stage % 16 == 0
+    assert p.threads % 32 == 0 and 32 <= p.threads <= ix_kernel.MAX_THREADS
+    assert p.threads >= min(-(-f // ix_kernel.BWD_ROWS) * -(-d // ix_kernel.BWD_COLS),
+                            ix_kernel.MAX_THREADS)
+    per_sm = -(-p.grid // 132)
+    assert p.grid <= b and (p.grid == b or p.grid % 132 == 0)
+    assert per_sm * p.threads <= ix_kernel.SM_THREADS
+    assert per_sm * p.threads * ix_kernel.BWD_REGISTERS <= ix_kernel.SM_REGISTERS
+    assert per_sm * (p.smem + 1024) <= ix_kernel.SM_SHARED_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        ix.backward_plan(2, 300, 64)
+        ix_kernel.backward_plan(2, 300, 64, itemsize, 132)
+
+
+def test_dot_interaction_backward_plan_at_rmc2():
+    """RMC2 (F = 41, D = 32, float32): 192 threads a block (11 groups of
+    four rows by 16 pairs of columns), five blocks an SM by registers, so
+    660 blocks of two buffers of 8.6 KB beside a 15.5 KB table; B = 1,024
+    gives a block 1 or 2 samples, B = 65,536 some 99."""
+    p = ix_kernel.backward_plan(1024, 41, 32, 4, 132)
+    assert (p.threads, p.grid, p.smem) == (192, 660, 2 * 44 * 44 * 4 + 2 * (3280 + 32 + 5248 + 32))
+    assert ix_kernel.backward_plan(65_536, 41, 32, 4, 132).grid == 660
+    assert ix_kernel.backward_plan(9, 41, 32, 4, 132).grid == 9
