@@ -94,6 +94,17 @@ What it does, one JSON line per phase:
                  host CPU (a (2, 2) mesh for the MoE), and compressed_psum's
                  4 ranks on the card's tensors through gloo where it takes
                  them; no process outlives it; within 60 s
+  cells          the cell builder (launch/steps.py) in an NCCL world of one
+                 rank on a (1, 1) (data, model) mesh: DLRM-RMC2's
+                 train_batch step at its published size and B = 65,536 on
+                 DTensors against the same step on plain tensors (loss,
+                 every parameter and optimiser leaf the same bits, exactly
+                 one K1, K2, K1-bwd and K2-bwd a step); xDeepFM's serve_p99
+                 step against bulk_forward (the same bits, one K1 and three
+                 K3); granite-moe-1b-a400m's train_4k step through
+                 make_sharded_moe, 4 x 1,024 tokens, against one plain
+                 step (loss within rtol 2e-4); each timed, median of 3;
+                 within 300 s
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -148,6 +159,7 @@ no result line:
   train        the train phase (backward kernels checked and timed)
   gnn          the gnn phase
   dist         the dist phase
+  cells        the cells phase
   lm_moe       the lm_moe phase
   remote       the remote phase
   k2_timings   K2 timed at the DLRM shapes
@@ -182,7 +194,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -215,6 +227,7 @@ from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers import moe as moe_lib  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.models import gnn, lm, recsys  # noqa: E402
 from repro_torch.serve.batching import pad_batch  # noqa: E402
 from repro_torch.serve.runtime import (OnlineController, ServingRuntime,  # noqa: E402
@@ -305,6 +318,13 @@ DIST_DIR = Path(__file__).resolve().parent / "build" / "dist_smoke"
 # the remote phase: two card workers of the JAX package's live_parity
 # MLP behind the supervisor, buckets to 64, each run HORIZON seconds of
 # trace at half the lockstep-calibrated capacity
+CELLS_TRAIN = ("dlrm-rmc2", "train_batch")       # published size and batch (65,536), not cut
+CELLS_SERVE = ("xdeepfm", "serve_p99")          # published size, B = 512
+CELLS_LM = ("granite-moe-1b-a400m", "train_4k")
+CELLS_LM_BATCH, CELLS_LM_SEQ = 4, 1024          # cut from train_4k's 256 x 4,096
+CELLS_TIMED = 3                                 # steps timed a path (median)
+CELLS_LM_RTOL = 2e-4                            # tests/test_distributed.py's own
+CELLS_SECONDS = 300.0
 REMOTE_MODEL = "mlp:128:256:2"
 REMOTE_NODES = 2
 REMOTE_MAX_BUCKET = 64
@@ -3224,6 +3244,235 @@ def dist_phase(seed: int, dev) -> dict:
     return line
 
 
+# ------------------------------------------------------------------ cells
+
+
+def same_leaves(what: str, got: dict, want: dict) -> dict:
+    """Two steps' trees, leaf by leaf ({path: tensor}): each must hold the
+    same bits (``torch.equal``); a leaf that does not is held to the gradient
+    gate's TOL instead (``grad_compare``: an op that sums in another order
+    on DTensors) and named.  Fails on a leaf outside TOL or a missing one."""
+    if got.keys() != want.keys():
+        fail(f"{what}: leaves {sorted(got)} != {sorted(want)}")
+    at_tol, err = [], 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)              # AdamW's count lies on the host until placed
+        if not torch.equal(g, w):
+            err = max(err, grad_compare(f"{what} {k}", g, w))
+            at_tol.append(k)
+    return {"leaves": len(want), "bit_equal": len(want) - len(at_tol), "at_tol": at_tol,
+            "max_abs_err": err}
+
+
+def expect_cell_launches(what: str, launches: dict, want: dict) -> None:
+    """Exactly ``want`` launches of each kernel named, none of the others."""
+    full = {**dict.fromkeys(KERNELS, 0), **want}
+    if launches != full:
+        fail(f"cells {what}: launched {launches}, expected {full}")
+
+
+def tally(total: dict, what: str, want: dict) -> None:
+    """Check the launches since the last reset (``expect_cell_launches``)
+    and add them to the phase's ``total``."""
+    launches = ops.launch_counts()
+    expect_cell_launches(what, launches, want)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def local_leaves(tree) -> dict:
+    """{path: the local tensor} of a tree of DTensors or tensors."""
+    return {k: v.to_local() if isinstance(v, DTensor) else v
+            for k, v in leaves_with_paths(tree)}
+
+
+def timed_calls(fn, n: int) -> tuple[float, list]:
+    """Median ms of ``n`` calls of ``fn()`` (CUDA events, host issue
+    included), and each call's result."""
+    ms, outs = [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        outs.append(fn())
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(ms), outs
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """DLRM-RMC2's train_batch cell at its published size and batch (40 x
+    10^6 x 32 float32 tables, B = 65,536): one step of the cell's
+    train_step on DTensors and the same step on plain tensors from the same
+    parameters, optimiser state and batch; loss, every parameter and every
+    optimiser leaf bit for bit (``same_leaves``); exactly one K1, K2, K1-bwd
+    and K2-bwd a step on each path; then CELLS_TIMED more steps of each
+    path timed, and one more under torch.profiler (``step_profile``)."""
+    arch, shape = CELLS_TRAIN
+    cfg = configs.get(arch).config
+    cell = steps_lib.build_cell(arch, shape, mesh)
+    b = configs.RECSYS_SHAPES[shape].batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = recsys.init(gen, cfg, device=dev)
+    state = cell.init_state(params)
+    batch = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, b), dev)
+    sharded = cell.place(clone_tree(params), clone_tree(state), batch)
+    one = {**dict.fromkeys(KERNELS, 0), "embedding_bag": 1, "dot_interaction": 1,
+           "embedding_bag_backward": 1, "dot_interaction_backward": 1}
+    out = {"arch": arch, "shape": shape, "batch": b, "mesh": list(mesh.shape)}
+    runs = {}
+    for name, args in (("sharded", sharded), ("unsharded", (params, state, batch))):
+        ops.reset_launch_counts()
+        ms, (first,) = timed_calls(lambda: cell.fn(*args), 1)
+        tally(launches, f"{arch} {name} step", one)
+        runs[name] = {"first_step_ms": ms, "loss": local_leaves({"l": first[2]})["['l']"]}
+    loss_s, loss_u = runs["sharded"]["loss"], runs["unsharded"]["loss"]
+    if not torch.isfinite(loss_u) or not torch.equal(loss_s, loss_u):
+        fail(f"cells {arch}: sharded loss {float(loss_s)} != unsharded {float(loss_u)}")
+    out["loss"] = float(loss_u)
+    out["params"] = same_leaves(f"cells {arch} params", local_leaves(sharded[0]),
+                                local_leaves(params))
+    out["opt_state"] = same_leaves(f"cells {arch} optimiser state", local_leaves(sharded[1]),
+                                   local_leaves(state))
+    for name, args in (("sharded", sharded), ("unsharded", (params, state, batch))):
+        ops.reset_launch_counts()
+        runs[name]["step_ms"], _ = timed_calls(lambda: cell.fn(*args), CELLS_TIMED)
+        tally(launches, f"{arch} {name} timed steps",
+              {k: v * CELLS_TIMED for k, v in one.items()})
+        ops.reset_launch_counts()
+        runs[name]["profile"] = step_profile(lambda: cell.fn(*args), top=6)
+        tally(launches, f"{arch} {name} profiled step", one)
+        del runs[name]["loss"]
+    out.update(runs)
+    out["launches_a_step"] = one
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state, batch, sharded, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_serve_xdeepfm(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """xDeepFM's serve_p99 cell at its published size (39 x 200,000 x 10,
+    CIN 200-200-200, B = 512): the cell's serving step on DTensors against
+    ``recsys.bulk_forward`` on plain tensors, the same bits, one K1 and
+    three K3 launches each."""
+    arch, shape = CELLS_SERVE
+    cfg = configs.get(arch).config
+    cell = steps_lib.build_cell(arch, shape, mesh)
+    b = configs.RECSYS_SHAPES[shape].batch
+    params = recsys.init(gen, cfg, device=dev)
+    batch = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, b,
+                                       with_label=False), dev)
+    sharded = cell.place(clone_tree(params), batch)
+    want_launches = {"embedding_bag": 1, "cin_layer": len(cfg.cin_layers)}
+    out = {"arch": arch, "shape": shape, "batch": b, "mesh": list(mesh.shape)}
+    res = {}
+    for name, fn in (("sharded", lambda: cell.fn(*sharded)),
+                     ("unsharded", lambda: recsys.bulk_forward(params, cfg, batch))):
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        tally(launches, f"{arch} {name}", want_launches)
+        ops.reset_launch_counts()
+        out[f"{name}_ms"], outs = timed_calls(fn, CELLS_TIMED)
+        tally(launches, f"{arch} {name} timed calls",
+              {k: v * CELLS_TIMED for k, v in want_launches.items()})
+        res[name] = local_leaves({"o": outs[0]})["['o']"]
+    if res["unsharded"].shape != (b,) or not torch.isfinite(res["unsharded"]).all():
+        fail(f"cells {arch}: logits {tuple(res['unsharded'].shape)} not finite of ({b},)")
+    if not torch.equal(res["sharded"], res["unsharded"]):
+        err = float((res["sharded"] - res["unsharded"]).abs().max())
+        fail(f"cells {arch}: sharded logits differ from unsharded by {err:.3e}")
+    out["launches_a_call"] = {**dict.fromkeys(KERNELS, 0), **want_launches}
+    del params, batch, sharded, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_train_lm(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """granite-moe-1b-a400m's train_4k cell at published width and depth,
+    the batch cut to CELLS_LM_BATCH x CELLS_LM_SEQ tokens: one step of the
+    cell's train_step on DTensors (its MoE layers through
+    ``make_sharded_moe``) against one AdamW step of ``lm.loss_fn`` on plain
+    tensors (``apply_moe``) from the same weights and batch; the losses
+    within CELLS_LM_RTOL; the largest parameter difference reported; each
+    path timed and profiled as RMC2's.  No kernel runs: launches are 0."""
+    arch, shape = CELLS_LM
+    cfg = configs.get(arch).config
+    cell = steps_lib.build_cell(arch, shape, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(gen, cfg, device=dev)
+    state = cell.init_state(params)
+    batch = to_device(syn.lm_batch(np.random.default_rng(seed), cfg, CELLS_LM_BATCH,
+                                   CELLS_LM_SEQ), dev)
+    sharded = cell.place(clone_tree(params), clone_tree(state), batch)
+    opt = optim.adamw(3e-4)                       # the cell's optimiser
+
+    def unsharded_step():
+        loss, grads = value_and_grad(lambda p, b_: lm.loss_fn(p, cfg, b_), params, batch)
+        opt.update(grads, state, params)
+        return loss
+
+    ops.reset_launch_counts()
+    ms_s, (first,) = timed_calls(lambda: cell.fn(*sharded), 1)
+    ms_u, (loss_u,) = timed_calls(unsharded_step, 1)
+    tally(launches, f"{arch} steps", {})
+    loss_s = float(local_leaves({"l": first[2]})["['l']"])
+    if not np.isfinite(loss_s) or abs(loss_s - float(loss_u)) > CELLS_LM_RTOL * abs(float(loss_u)):
+        fail(f"cells {arch}: sharded loss {loss_s} vs unsharded {float(loss_u)}, "
+             f"past rtol {CELLS_LM_RTOL}")
+    got, want = local_leaves(sharded[0]), local_leaves(params)
+    diff = {k: float((got[k].float() - w.float()).abs().max()) for k, w in want.items()}
+    worst = max(diff, key=diff.get)
+    out = {"arch": arch, "shape": shape, "batch": [CELLS_LM_BATCH, CELLS_LM_SEQ],
+           "reduced": f"batch {CELLS_LM_BATCH} x {CELLS_LM_SEQ} tokens, cut from "
+                      f"{configs.LM_SHAPES[shape].global_batch} x {configs.LM_SHAPES[shape].seq_len}",
+           "mesh": list(mesh.shape), "loss_sharded": loss_s, "loss_unsharded": float(loss_u),
+           "loss_rel_err": abs(loss_s - float(loss_u)) / abs(float(loss_u)),
+           "max_param_abs_diff": diff[worst], "max_param_abs_diff_at": worst,
+           "first_step_ms": {"sharded": ms_s, "unsharded": ms_u}}
+    ops.reset_launch_counts()
+    out["step_ms"] = {"sharded": timed_calls(lambda: cell.fn(*sharded), CELLS_TIMED)[0],
+                      "unsharded": timed_calls(unsharded_step, CELLS_TIMED)[0]}
+    tally(launches, f"{arch} timed steps", {})
+    out["profile"] = {"sharded": step_profile(lambda: cell.fn(*sharded), top=6),
+                      "unsharded": step_profile(unsharded_step, top=6)}
+    tally(launches, f"{arch} profiled steps", {})
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state, batch, sharded, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_phase(seed: int, dev, gen) -> dict:
+    """The cell builder (launch/steps.py) on the card: an NCCL world of one
+    rank, a (1, 1) (data, model) mesh; RMC2's train_batch step, xDeepFM's
+    serve_p99 step and granite-moe's train_4k step on DTensors, each held
+    against the same step on plain tensors (see each part).  Frees all it
+    holds; fails past CELLS_SECONDS."""
+    t0 = time.monotonic()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        line = {"phase": "cells", "backend": dist.get_backend(), "mesh": list(mesh.shape),
+                "launches": dict.fromkeys(KERNELS, 0)}
+        for key, fn in (("rmc2_train_batch", cells_train_rmc2),
+                        ("xdeepfm_serve_p99", cells_serve_xdeepfm),
+                        ("granite_moe_train_4k", cells_train_lm)):
+            line[key] = fn(seed, dev, gen, mesh, line["launches"])
+    finally:
+        dist.destroy_process_group()
+    line["seconds"] = time.monotonic() - t0
+    if line["seconds"] > CELLS_SECONDS:
+        fail(f"cells: took {line['seconds']:.1f} s, past {CELLS_SECONDS} s")
+    return line
+
+
 # the phases ``--only`` runs alone: (args, device, generator) -> its line
 ONLY = {
     "train": lambda args, dev, gen: train_phase(args.seed, dev, gen),
@@ -3231,6 +3480,7 @@ ONLY = {
     "remote": lambda args, dev, gen: remote(args.seed),
     "gnn": lambda args, dev, gen: gnn_phase(args.seed, dev, gen),
     "dist": lambda args, dev, gen: dist_phase(args.seed, dev),
+    "cells": lambda args, dev, gen: cells_phase(args.seed, dev, gen),
     "k2_timings": lambda args, dev, gen: {
         "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
     "bwd_timings": lambda args, dev, gen: bwd_timings(args.seed, dev, gen),
@@ -3347,6 +3597,10 @@ def main() -> None:
     # lm_decode_32k
     after(gnn_phase(args.seed, dev, gen))
     after(dist_phase(args.seed, dev))
+    # the cell builder's steps on DTensors: RMC2 at train_batch's 65,536
+    # (about 40 GB at its peak), freed before lm_decode_32k
+    celled = cells_phase(args.seed, dev, gen)
+    after(celled)
 
     generated = lm_generate(args.seed, dev, gen)
     after(generated)
@@ -3366,8 +3620,8 @@ def main() -> None:
     after(remoted)
 
     paths = (served["launches"], scheduled["launches"], lived["launches"], zoo_line["launches"],
-             served_x["launches"], trained["launches"], generated["launches"],
-             decoded["launches"], moe_line["launches"])
+             served_x["launches"], trained["launches"], celled["launches"],
+             generated["launches"], decoded["launches"], moe_line["launches"])
     total = {k: sum(p[k] for p in paths) for k in KERNELS}
     eb_main = next(t for t in eb_times if t["ids"] == "zipf" and t["batch"] == MAIN_BATCHES[-1])
     ix_main = next(t for t in ix_times

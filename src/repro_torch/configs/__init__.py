@@ -31,3 +31,10 @@ from repro_torch.configs.shapes import (  # noqa: F401
     RecShape,
     shapes_for_family,
 )
+
+# the ten architectures whose (arch × shape) cells ``launch/steps.py::all_cells``
+# lists, in the reference's order
+ASSIGNED_ARCHS = [
+    "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "qwen2-0.5b", "yi-34b",
+    "phi3-mini-3.8b", "gcn-cora", "mind", "xdeepfm", "autoint", "bert4rec",
+]

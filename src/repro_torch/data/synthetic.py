@@ -1,18 +1,45 @@
 """Synthetic recommendation batches with a planted learnable signal, LM
 token streams, and graphs (community-structured random graphs, their CSR,
-batches of small graphs).
+batches of small graphs); and the ``Spec`` builders, the shape and dtype of
+every input leaf without allocating it (the cell builder's arguments,
+``launch/steps.py``).
 
 Everything here is numpy on the host: a serving runtime pads a request on
-the host and moves the padded request to the device in one step.
+the host and moves the padded request to the device in one step.  A spec
+builder and its batch builder share one layout, so a cell describes
+exactly what the runtime feeds.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
+from repro_torch.models.gnn import GCNConfig
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.recsys import RecConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """The shape and torch dtype of one leaf, nothing allocated (the
+    reference's ``jax.ShapeDtypeStruct``)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @classmethod
+    def like(cls, t: torch.Tensor) -> "Spec":
+        return cls(tuple(t.shape), t.dtype)
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
 
 
 def recsys_layout(cfg: RecConfig, batch: int, *, n_candidates: int = 0,
@@ -34,6 +61,13 @@ def recsys_layout(cfg: RecConfig, batch: int, *, n_candidates: int = 0,
         shape = (batch,) if cfg.n_tasks == 1 else (batch, cfg.n_tasks)
         out["label"] = (shape, np.float32)
     return out
+
+
+def recsys_specs(cfg: RecConfig, batch: int, **kw) -> dict[str, Spec]:
+    """``recsys_layout``'s leaves as specs (``n_candidates``, ``with_label``
+    as there)."""
+    return {k: Spec(s, _TORCH_DTYPES[np.dtype(d)])
+            for k, (s, d) in recsys_layout(cfg, batch, **kw).items()}
 
 
 def recsys_batch(rng: np.random.Generator, cfg: RecConfig, batch: int, *,
@@ -89,6 +123,23 @@ def _zipf_ids(rng, shape, vocab: int) -> np.ndarray:
 # ---------------------------------------------------------------------- lm
 
 
+def lm_specs(cfg: LMConfig, batch: int, seq: int) -> dict[str, Spec]:
+    """``lm_batch``'s leaves: tokens and labels, (B, S) int32 each."""
+    return {"tokens": Spec((batch, seq), torch.int32),
+            "labels": Spec((batch, seq), torch.int32)}
+
+
+def decode_specs(cfg: LMConfig, batch: int, cache_len: int) -> tuple[Spec, list[dict]]:
+    """One decode step's inputs: the token (B,) int32 and a KV cache a
+    layer, k and v (B, cache_len, Hkv, D) in the config's dtype and pos (B,)
+    int32 (``models.lm.init_caches``' layout)."""
+    tok = Spec((batch,), torch.int32)
+    kv = Spec((batch, cache_len, cfg.n_kv_heads, cfg.hd), cfg.tdtype)
+    cache = [{"k": kv, "v": kv, "pos": Spec((batch,), torch.int32)}
+             for _ in range(cfg.n_layers)]
+    return tok, cache
+
+
 def lm_batch(rng: np.random.Generator, cfg: LMConfig, batch: int, seq: int) -> dict:
     """Markov-chain token stream (learnable next-token structure): tokens
     and next-token labels, (B, S) int32 each.  Draws from ``rng`` in the
@@ -105,6 +156,18 @@ def lm_batch(rng: np.random.Generator, cfg: LMConfig, batch: int, seq: int) -> d
 
 
 # --------------------------------------------------------------------- gnn
+
+
+def gnn_full_specs(cfg: GCNConfig, n_nodes: int, n_edges: int,
+                   with_label: bool = True) -> dict[str, Spec]:
+    """``random_graph``'s leaves: x (N, d_feat) float32, edge_index (2, E)
+    int32 and, with labels, labels (N,) int32 and train_mask (N,) bool."""
+    out = {"x": Spec((n_nodes, cfg.d_feat), torch.float32),
+           "edge_index": Spec((2, n_edges), torch.int32)}
+    if with_label:
+        out["labels"] = Spec((n_nodes,), torch.int32)
+        out["train_mask"] = Spec((n_nodes,), torch.bool)
+    return out
 
 
 def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int,
@@ -163,3 +226,27 @@ def molecule_batch(rng: np.random.Generator, batch: int, n_nodes: int,
     mask = np.ones((batch, n_nodes), bool)
     labels = (x.mean(axis=(1, 2)) > 0).astype(np.int32)
     return {"x": x, "edge_index": ei, "node_mask": mask, "labels": labels}
+
+
+def molecule_specs(cfg: GCNConfig, batch: int, n_nodes: int, n_edges: int) -> dict[str, Spec]:
+    """``molecule_batch``'s leaves."""
+    return {"x": Spec((batch, n_nodes, cfg.d_feat), torch.float32),
+            "edge_index": Spec((batch, 2, n_edges), torch.int32),
+            "node_mask": Spec((batch, n_nodes), torch.bool),
+            "labels": Spec((batch,), torch.int32)}
+
+
+def minibatch_block_specs(cfg: GCNConfig, batch_nodes: int, fanouts):
+    """The largest (no node sampled twice) blocks of a sampled minibatch:
+    (x_input spec, [(edge_index spec (2, E), n_src, n_dst), ...]), the
+    innermost block first, as ``models.gnn.sample_neighbors`` orders them."""
+    sizes = []
+    n_dst = batch_nodes
+    for f in fanouts:
+        n_edge = n_dst * f
+        n_src = n_dst + n_edge
+        sizes.append((n_edge, n_src, n_dst))
+        n_dst = n_src
+    blocks = [(Spec((2, n_edge), torch.int32), n_src, n_dst_l)
+              for n_edge, n_src, n_dst_l in reversed(sizes)]
+    return Spec((sizes[-1][1], cfg.d_feat), torch.float32), blocks

@@ -18,10 +18,25 @@ requires grad) the path is the forward alone, with no graph and no
 backward launch.  The kernels without a backward kernel (``gram``,
 ``cin_layer``, ``decode_attention``) raise on a CUDA tensor that needs a
 gradient rather than hand back a result autograd cannot see through.
+
+DTensors.  ``embedding_bag``, ``dot_interaction`` and ``cin_layer`` take
+``torch.distributed.tensor.DTensor`` arguments too: through
+``local_map`` the wrapper is called again on each rank's local shards, so
+a CUDA shard launches the kernel (and counts its launch), a CPU shard
+takes the plain version, and the ``autograd.Function``s are the same.  A
+batch split over a mesh axis (``Shard(0)``) stays split; every other split
+of an activation is gathered before the kernel, and a replicated weight's
+gradient is declared a partial sum over the batch's axes, so that it is
+reduced.  A table split by columns looks up its columns locally and the
+pooled columns are gathered after; a table split by rows looks up the
+rows it holds (every other id reads one zero row appended to the local
+shard) and the pooled partial sums are added across the axis.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import cin as _cin
 from repro_torch.kernels import decode_attention as _da
@@ -91,9 +106,112 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mode: str = "sum",
         lo, hi = int(idx.min()), int(idx.max())
         if lo < 0 or hi >= table.shape[-2]:
             raise IndexError(f"indices span [{lo}, {hi}], table has {table.shape[-2]} rows")
+    if isinstance(table, DTensor):
+        return on_table_shards(
+            table, idx, lambda t, ids: embedding_bag(t, ids.contiguous(), mode=mode,
+                                                     check_indices=check_indices),
+            idx.ndim - 1)
     if _needs_grad(table):
         return _EmbeddingBag.apply(table, idx, mode)
     return _embedding_bag(table, idx, mode)
+
+
+# ------------------------------------------------------------------ DTensors
+
+
+def _batch_only(x: DTensor) -> tuple:
+    """x's placements with its batch split (``Shard(0)``) kept and every
+    other split or partial sum made whole."""
+    return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+
+
+def _summed_over(batch: tuple) -> tuple:
+    """The gradient placements of a weight replicated over the mesh: a
+    partial sum over each axis the batch is split on."""
+    return tuple(Partial() if p == Shard(0) else Replicate() for p in batch)
+
+
+def _as_dtensor(x: torch.Tensor, like: DTensor) -> DTensor:
+    """A plain tensor, the same on every rank, as a replicated DTensor."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, like.device_mesh, [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def on_table_shards(table: DTensor, idx: torch.Tensor, lookup, n_split: int) -> DTensor:
+    """``lookup(table, ids)`` of a DTensor table ``(..., V, D)`` on each
+    rank's shards, whole along D.  A split of ``idx``'s first ``n_split``
+    dims (the dims the output shares) stays where the table is whole, and
+    the output is split as they are; elsewhere the ids are gathered.  A
+    table split by columns looks up its columns, which are gathered after;
+    a table split by rows looks up the rows it holds, every other id
+    reading a zero row appended to the local shard, and the partial sums
+    are added after.  The table's gradient is declared as what each rank
+    holds: its own columns or rows, a partial sum over the ids' splits.
+    ``embedding_bag``'s route, and ``layers.embedding.lookup``'s."""
+    mesh = table.device_mesh
+    idx = _as_dtensor(idx, table)
+    v_dim, d_dim = table.ndim - 2, table.ndim - 1
+    idx_pl = tuple(ip if ip.is_shard() and ip.dim < n_split and tp == Replicate()
+                   else Replicate() for ip, tp in zip(idx.placements, table.placements))
+    out_ndim = n_split + 1
+    out_pl, grad_pl, row_axes = [], [], []
+    for axis, (tp, ip) in enumerate(zip(table.placements, idx_pl)):
+        if ip.is_shard():
+            out_pl.append(ip)
+            grad_pl.append(Partial())
+        elif tp.is_shard(d_dim):
+            out_pl.append(Shard(out_ndim - 1))
+            grad_pl.append(tp)
+        elif tp.is_shard(v_dim):
+            out_pl.append(Partial())
+            grad_pl.append(tp)
+            row_axes.append(axis)
+        elif tp == Replicate():
+            out_pl.append(Replicate())
+            grad_pl.append(Replicate())
+        else:
+            raise ValueError(f"no lookup for a table placed {table.placements}")
+    if len(row_axes) > 1:
+        raise ValueError(f"the table's rows are split over more than one axis: "
+                         f"{table.placements}")
+    if row_axes:
+        # DTensor's row shards: ceil(V / m) rows each, the last ones fewer
+        per = -(-table.shape[v_dim] // mesh.size(row_axes[0]))
+        lo = mesh.get_local_rank(row_axes[0]) * per
+
+    def local(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        if row_axes:
+            n = t.shape[v_dim]
+            zero = t.new_zeros(t.shape[:v_dim] + (1,) + t.shape[v_dim + 1:])
+            t = torch.cat([t, zero], dim=v_dim)
+            ids = ids - lo
+            ids = torch.where((ids >= 0) & (ids < n), ids, torch.full_like(ids, n))
+        return lookup(t, ids)
+
+    out = local_map(local, out_placements=list(out_pl),
+                    in_placements=(table.placements, idx_pl),
+                    in_grad_placements=(tuple(grad_pl), idx_pl), device_mesh=mesh,
+                    redistribute_inputs=True)(table, idx)
+    return out.redistribute(mesh, [p if p.is_shard() and p.dim < n_split else Replicate()
+                                   for p in out.placements])
+
+
+def _on_batch_shards(fn, xs: tuple, weights: tuple = ()) -> DTensor:
+    """``fn(*xs, *weights)`` on each rank's shards: the activations ``xs``
+    keep the first one's batch split and are made whole along every other
+    dim; the weights are replicated, their gradient a partial sum over the
+    batch's axes; the output is split as the batch is."""
+    like = next(x for x in xs + weights if isinstance(x, DTensor))
+    xs = tuple(_as_dtensor(x, like) for x in xs)
+    weights = tuple(_as_dtensor(w, like) for w in weights)
+    pl = _batch_only(xs[0])
+    rep = tuple(Replicate() for _ in pl)
+    return local_map(fn, out_placements=list(pl),
+                     in_placements=(pl,) * len(xs) + (rep,) * len(weights),
+                     in_grad_placements=(pl,) * len(xs) + (_summed_over(pl),) * len(weights),
+                     device_mesh=like.device_mesh, redistribute_inputs=True)(*xs, *weights)
 
 
 def _embedding_bag(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
@@ -199,6 +317,8 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) → (B, F(F-1)/2): the strict lower triangle of each
     sample's Gram matrix in ``np.tril_indices(F, -1)`` order, float32
     accumulation, result in the input's dtype."""
+    if isinstance(feats, DTensor):
+        return _on_batch_shards(dot_interaction, (feats,))
     if _needs_grad(feats):
         return _DotInteraction.apply(feats)
     return _interaction(feats, packed=True)
@@ -273,6 +393,8 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
                         f"{x0.dtype}, {xk.dtype}, {w.dtype}")
     if xk.device != x0.device or w.device != x0.device:
         raise ValueError(f"x0 lies on {x0.device}, xk on {xk.device}, w on {w.device}")
+    if any(isinstance(t, DTensor) for t in (x0, xk, w)):
+        return _on_batch_shards(cin_layer, (x0, xk), (w,))
     _no_backward_kernel("cin_layer", "K3's backward kernel is queued in ROADMAP.md", x0, xk, w)
     if not x0.is_cuda:
         return ref.cin_layer(x0, xk, w)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops
 from repro_torch.layers.mlp import init_linear, linear
@@ -134,21 +136,66 @@ def causal_mask(s: int, device: torch.device | str) -> torch.Tensor:
     return torch.ones((s, s), dtype=torch.bool, device=device).tril()[None, None]
 
 
+def _uneven_heads(t: torch.Tensor, n: int) -> bool:
+    """A DTensor projection whose last dim (n heads) is split over a mesh
+    axis that n does not divide."""
+    return isinstance(t, DTensor) and any(
+        p.is_shard(t.ndim - 1) and n % t.device_mesh.size(axis)
+        for axis, p in enumerate(t.placements))
+
+
+def _whole_heads(t: torch.Tensor) -> torch.Tensor:
+    """t with its last dim gathered on every mesh axis that splits it."""
+    return t.redistribute(placements=[Replicate() if p.is_shard(t.ndim - 1) else p
+                                      for p in t.placements])
+
+
 def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
               causal: bool = True, positions: torch.Tensor | None = None,
               freqs: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, S, d_model) → (B, S, d_model) self-attention; RoPE at
-    ``positions`` (default 0..S-1) when ``freqs`` is given."""
+    ``positions`` (default 0..S-1) when ``freqs`` is given.
+
+    On DTensors the core (RoPE, scores, softmax, the product with V) runs on
+    each rank's local tensors through ``local_map``: heads and samples never
+    meet in it, so a rank's batch shard and its heads, each sequence whole,
+    are all it needs.
+    Where the query or the KV head count does not divide a mesh axis that
+    splits the projections, their outputs are gathered over that axis
+    first (as Megatron replicates KV heads): only activations move, the
+    weights keep their placements, and the core's output is split again as
+    the projections were before it meets the output projection."""
     b, s, _ = x.shape
-    q = linear(params["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(b, s, n_kv_heads, head_dim)
-    v = linear(params["wv"], x).reshape(b, s, n_kv_heads, head_dim)
-    if freqs is not None:
-        pos = positions if positions is not None else torch.arange(s, device=x.device)
-        q, k = apply_rope(q, pos, freqs), apply_rope(k, pos, freqs)
+    q, k, v = (linear(params[name], x) for name in ("wq", "wk", "wv"))
+    split = None
+    if _uneven_heads(q, n_heads) or _uneven_heads(k, n_kv_heads):
+        split = q.placements
+        q, k, v = (_whole_heads(t) for t in (q, k, v))
+    q = q.reshape(b, s, n_heads, head_dim)
+    k = k.reshape(b, s, n_kv_heads, head_dim)
+    v = v.reshape(b, s, n_kv_heads, head_dim)
     mask = causal_mask(s, x.device) if causal and s * s <= _FLASH_THRESHOLD else None
-    out = _sdpa(q, k, v, mask, causal_hint=causal)
-    return linear(params["wo"], out.reshape(b, s, n_heads * head_dim))
+
+    def core(q, k, v):
+        if freqs is not None:
+            pos = positions if positions is not None else torch.arange(s, device=q.device)
+            q, k = apply_rope(q, pos, freqs), apply_rope(k, pos, freqs)
+        return _sdpa(q, k, v, mask, causal_hint=causal)
+
+    if isinstance(q, DTensor):
+        # a split of the batch (dim 0) or of the heads (dim 2) stays; the
+        # sequence is made whole, since every query reads every key
+        pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements)
+        core = local_map(core, out_placements=list(pl), in_placements=(pl, pl, pl),
+                         in_grad_placements=(pl, pl, pl), device_mesh=q.device_mesh,
+                         redistribute_inputs=True)
+    out = core(q, k, v).reshape(b, s, n_heads * head_dim)
+    if split is not None:
+        # split again as the projections were (a local slice): the output
+        # projection takes it as it is, and its gradient is gathered before
+        # the heads are
+        out = out.redistribute(placements=split)
+    return linear(params["wo"], out)
 
 
 # ------------------------------------------------------------------- decode

@@ -16,6 +16,8 @@ Plus the compressed-table lookups (hashing, quotient-remainder).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 
@@ -28,6 +30,17 @@ def init_table(generator: torch.Generator, vocab: int, dim: int, *,
     scale = scale if scale is not None else 1.0 / dim ** 0.5
     t = torch.randn((vocab, dim), generator=generator, device=device, dtype=dtype)
     return t.mul_(scale)
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table (V, D)`` at ``idx`` → ``(*idx.shape, D)``: indexing's
+    values, through ``F.embedding``.  A DTensor table, split by rows or by
+    columns, is looked up on each rank's shard (``ops.on_table_shards``);
+    what comes out is split as ``idx`` is."""
+    if isinstance(table, DTensor):
+        return ops.on_table_shards(table, idx, lambda t, ids: F.embedding(ids.long(), t),
+                                   idx.ndim)
+    return F.embedding(idx.long(), table)
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mode: str = "sum",

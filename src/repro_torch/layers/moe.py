@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.layers.mlp import init_linear, linear
 
@@ -146,6 +146,16 @@ def make_sharded_moe(mesh, *, top_k: int, capacity_factor: float = 1.25):
     rank; ``dropped_frac`` is the mean over the ranks outside the model
     group, taken as the mean over every rank: the model ranks of one batch
     shard hold the same value, since their kept counts are summed first.
+
+    ``x`` may also be a DTensor split over every axis but ``model`` (an
+    LM's activations on DTensor parameters, ``models.lm``'s ``moe_fn``): it is
+    made whole over ``model``, the layer runs on the local shards, and y is
+    a DTensor split as x's batch, the statistics replicated.  The local
+    gradients are declared as what they are, so that autograd reduces
+    them: x's a partial sum over ``model`` (each model rank's experts give
+    their part), the expert stacks' a partial sum over the batch axes, the
+    router's a partial sum over every axis.  The sum over ``model`` of y
+    passes y's gradient through unchanged, as its backward should.
     """
     group = mesh.get_group("model")
     m = dist.get_world_size(group)
@@ -155,7 +165,39 @@ def make_sharded_moe(mesh, *, top_k: int, capacity_factor: float = 1.25):
     def local(t):
         return t.to_local() if isinstance(t, DTensor) else t
 
+    model_axis = mesh.mesh_dim_names.index("model")
+
+    def on_dtensors(layer_params, x: DTensor):
+        batch = tuple(p if p == Shard(0) and axis != model_axis else Replicate()
+                      for axis, p in enumerate(x.placements))
+        if any(p != Shard(0) and axis != model_axis and mesh.size(axis) > 1
+               for axis, p in enumerate(batch)):
+            raise ValueError(f"the MoE layer's input must be split over every axis but "
+                             f"'model', got {x.placements}")
+        x_grad = tuple(Partial() if axis == model_axis else p for axis, p in enumerate(batch))
+        summed = tuple(Partial() if p == Shard(0) else Replicate() for p in batch)
+
+        def expert_local(t):
+            if not isinstance(t, DTensor):
+                return t
+            return t.to_local(grad_placements=tuple(
+                q if q.is_shard() else s_ for q, s_ in zip(t.placements, summed)))
+
+        local_params = {
+            **{k: expert_local(layer_params[k]) for k in ("wg", "wu", "wd")},
+            "router": {k: v.to_local(grad_placements=(Partial(),) * len(v.placements))
+                       if isinstance(v, DTensor) else v
+                       for k, v in layer_params["router"].items()}}
+        xl = x.redistribute(x.device_mesh, batch).to_local(grad_placements=x_grad)
+        y, stats = moe_fn(local_params, xl)
+        whole = (Replicate(),) * len(batch)
+        return (DTensor.from_local(y, x.device_mesh, batch, run_check=False),
+                {k: DTensor.from_local(v, x.device_mesh, whole, run_check=False)
+                 for k, v in stats.items()})
+
     def moe_fn(layer_params, x: torch.Tensor):
+        if isinstance(x, DTensor):
+            return on_dtensors(layer_params, x)
         wg, wu, wd = (local(layer_params[k]) for k in ("wg", "wu", "wd"))
         router = {k: local(v) for k, v in layer_params["router"].items()}
         e_local = wg.shape[0]                         # E/m experts on this rank

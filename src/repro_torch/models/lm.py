@@ -3,8 +3,8 @@ mixture-of-experts ones (granite-moe, qwen3-moe, top-8), GQA + RoPE +
 RMSNorm + SwiGLU (a SwiGLU expert stack, ``layers.moe``, in the MoE ones).
 
 Entry points:
-    forward(params, cfg, tokens)                  logits of a full sequence
-    loss_fn(params, cfg, batch)                   next-token cross-entropy
+    forward(params, cfg, tokens, moe_fn=None)     logits of a full sequence
+    loss_fn(params, cfg, batch, moe_fn=None)      next-token cross-entropy
     prefill(params, cfg, tokens, max_len)         last-token logits and KV caches
     decode_step(params, cfg, token, caches)       one token against the caches
 
@@ -17,7 +17,9 @@ place (see ``layers.attention.decode_attention``).
 
 An MoE layer routes the tokens of each call with the reference's
 capacity, so for an MoE config prefill then decode is not a forward of
-the whole sequence (``layers.moe``).  Training runs no hand-written
+the whole sequence (``layers.moe``).  ``moe_fn`` replaces the MoE layers'
+``apply_moe`` in a forward or a loss (the reference's hook): the cell
+builder passes ``make_sharded_moe``'s expert-parallel layer.  Training runs no hand-written
 kernel: ``forward_hidden``'s attention is plain tensor code.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers.mlp import ffn_swiglu, init_ffn_swiglu, init_linear, linear
 from repro_torch.layers.norms import init_rms_norm, rms_norm
@@ -122,37 +125,44 @@ def _unembed(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return linear(params["unembed"], x)
 
 
-def _ffn(layer, cfg: LMConfig, x: torch.Tensor):
+def _ffn(layer, cfg: LMConfig, x: torch.Tensor, moe_fn=None):
     """The layer's feed-forward block on x (B, S, d): (output, MoE aux loss
-    or None for a dense layer)."""
+    or None for a dense layer).  An MoE layer runs ``moe_fn(layer["moe"],
+    x) → (y, {"aux_loss", ...})`` when one is given (the expert-parallel
+    ``layers.moe.make_sharded_moe``), else ``apply_moe``."""
     if cfg.is_moe:
-        y, aux = moe_lib.apply_moe(layer["moe"], x, top_k=cfg.top_k)
+        if moe_fn is None:
+            y, aux = moe_lib.apply_moe(layer["moe"], x, top_k=cfg.top_k)
+        else:
+            y, aux = moe_fn(layer["moe"], x)
         return y, aux["aux_loss"]
     return ffn_swiglu(layer["ffn"], x), None
 
 
-def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor):
+def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor, *, moe_fn=None):
     """tokens (B, S) int → (final hidden state (B, S, d_model), the sum of
     the MoE layers' auxiliary losses, a float32 scalar: 0 for a dense
-    config)."""
-    x = params["embed"][tokens.long()]
+    config).  ``moe_fn`` replaces ``apply_moe`` in the MoE layers (see
+    ``_ffn``).  The token lookup is ``layers.embedding.lookup``: indexing's
+    values, and a vocabulary split over a mesh axis is added up."""
+    x = emb_lib.lookup(params["embed"], tokens)
     freqs = _freqs(cfg, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         x = x + attn_lib.attention(layer["attn"], rms_norm(layer["ln1"], x),
                                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                                    head_dim=cfg.hd, causal=True, freqs=freqs)
-        f, aux = _ffn(layer, cfg, rms_norm(layer["ln2"], x))
+        f, aux = _ffn(layer, cfg, rms_norm(layer["ln2"], x), moe_fn)
         x = x + f
         if aux is not None:
             aux_total = aux_total + aux
     return rms_norm(params["ln_f"], x), aux_total
 
 
-def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward(params, cfg: LMConfig, tokens: torch.Tensor, *, moe_fn=None) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, V) (the reference's ``forward``
     also returns the MoE auxiliary loss sum: ``forward_hidden`` has it)."""
-    return _unembed(params, cfg, forward_hidden(params, cfg, tokens)[0])
+    return _unembed(params, cfg, forward_hidden(params, cfg, tokens, moe_fn=moe_fn)[0])
 
 
 _LOSS_CHUNK = 512       # sequence chunk of the cross-entropy (big-vocab memory)
@@ -164,7 +174,7 @@ def _chunk_nll(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor) -> 
     return -logp.gather(-1, labels.long()[..., None])[..., 0].sum()
 
 
-def loss_fn(params, cfg: LMConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params, cfg: LMConfig, batch: dict, *, moe_fn=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (B, S), logits in float32, plus 0.01 times the MoE
     layers' auxiliary loss sum (0 for a dense config).  When S is a
@@ -172,9 +182,9 @@ def loss_fn(params, cfg: LMConfig, batch: dict) -> torch.Tensor:
     log-softmax run one chunk of the sequence at a time, each under
     activation checkpointing (the reference's ``jax.checkpoint``): peak
     logits memory is (B, chunk, V), and the backward recomputes each
-    chunk's logits."""
+    chunk's logits.  ``moe_fn`` as in ``forward_hidden``."""
     tokens, labels = batch["tokens"], batch["labels"]
-    x, aux = forward_hidden(params, cfg, tokens)
+    x, aux = forward_hidden(params, cfg, tokens, moe_fn=moe_fn)
     b, s, _ = x.shape
     if s % _LOSS_CHUNK != 0 or s <= _LOSS_CHUNK:
         return _chunk_nll(params, cfg, x, labels) / (b * s) + 0.01 * aux

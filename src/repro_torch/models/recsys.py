@@ -193,7 +193,7 @@ def _sparse_pooled(params, cfg: RecConfig, sparse: torch.Tensor) -> torch.Tensor
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table[idx.long()]
+    return emb_lib.lookup(table, idx)
 
 
 def forward(params, cfg: RecConfig, batch: dict) -> torch.Tensor:

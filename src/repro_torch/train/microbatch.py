@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.utils import leaves_with_paths, tree_map
 
@@ -39,24 +40,30 @@ def accumulated_grads(loss_fn: Callable, params: PyTree, batch: PyTree,
     loss and gradients, in the parameters' dtype.
 
     Peak activation memory drops by about ``num_microbatches``, at the cost
-    of as many passes: the standard lever when memory is the limit.
+    of as many passes: the standard lever when memory is the limit.  A
+    DTensor leaf split over its batch is split on each rank: microbatch i
+    is every rank's i-th chunk of its own shard, so no rank waits on rows
+    another holds (the mean over microbatches is the same; which rows
+    share a microbatch is not).
     """
     if num_microbatches <= 1:
         return value_and_grad(loss_fn, params, batch)
 
-    def chunks(x):
-        b = x.shape[0]
+    def chunk(x, i):
+        local = x.to_local() if isinstance(x, DTensor) else x
+        b = local.shape[0]
         if b % num_microbatches:
             raise ValueError(f"a batch of {b} does not split into {num_microbatches} microbatches")
-        return x.reshape(num_microbatches, b // num_microbatches, *x.shape[1:])
+        part = local.reshape(num_microbatches, b // num_microbatches, *local.shape[1:])[i]
+        if isinstance(x, DTensor):
+            return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
+        return part
 
-    micro = tree_map(chunks, batch)
-    loss_sum = torch.zeros((), dtype=torch.float32)
-    grad_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                        params)
+    loss_sum = None
+    grad_sum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     for i in range(num_microbatches):
-        loss, grads = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], micro))
-        loss_sum = loss_sum.to(loss.device) + loss.float()
+        loss, grads = value_and_grad(loss_fn, params, tree_map(lambda x: chunk(x, i), batch))
+        loss_sum = loss.float() if loss_sum is None else loss_sum + loss.float()
         tree_map(lambda a, g: a.add_(g.float()), grad_sum, grads)
     inv = 1.0 / num_microbatches
     return loss_sum * inv, tree_map(lambda g: g.mul_(inv), grad_sum)

@@ -291,6 +291,64 @@ def test_train_resume_check_is_bit_for_bit(drift):
             chip_smoke.check_same_bits("train resumed losses", resumed, straight)
 
 
+# ------------------------------------------------------------ the cells gates
+
+
+def _tree():
+    rng = np.random.default_rng(0)
+    return {"['tables']": torch.from_numpy(rng.normal(size=(3, 50, 8)).astype(np.float32)),
+            "['dense']['mu']['w']": torch.from_numpy(rng.normal(size=(16, 4)).astype(np.float32)),
+            "['dense']['count']": torch.tensor(1, dtype=torch.int32)}
+
+
+def test_cells_leaf_gate_passes_equal_bits_and_names_a_leaf_held_at_tol():
+    """The cells phase's sharded-against-unsharded check: equal bits pass
+    with no leaf named; a leaf a few ulps off (a DTensor op summing in
+    another order) passes at the gradient gate's TOL and is named."""
+    want = _tree()
+    got = {k: v.clone() for k, v in want.items()}
+    assert chip_smoke.same_leaves("cells", got, want) == {
+        "leaves": 3, "bit_equal": 3, "at_tol": [], "max_abs_err": 0.0}
+    got["['dense']['mu']['w']"] = torch.nextafter(got["['dense']['mu']['w']"],
+                                                  torch.tensor(np.inf))
+    res = chip_smoke.same_leaves("cells", got, want)
+    assert res["at_tol"] == ["['dense']['mu']['w']"] and res["bit_equal"] == 2
+    assert 0 < res["max_abs_err"] < 1e-5
+
+
+@pytest.mark.parametrize("fault", ["row_off", "missing_leaf", "table_zeroed"])
+def test_cells_leaf_gate_refuses_a_step_that_differs(fault):
+    """A table row moved by one adagrad step's size (0.01), a leaf the
+    sharded step lost, a table zeroed: refused."""
+    want = _tree()
+    got = {k: v.clone() for k, v in want.items()}
+    if fault == "row_off":
+        got["['tables']"][1, 7] += 0.01
+    elif fault == "missing_leaf":
+        del got["['dense']['count']"]
+    else:
+        got["['tables']"].zero_()
+    with pytest.raises(SystemExit, match="outside|leaves"):
+        chip_smoke.same_leaves("cells", got, want)
+
+
+@pytest.mark.parametrize("off", [-1, 1])
+@pytest.mark.parametrize("kernel", ["embedding_bag", "dot_interaction_backward", "cin_layer"])
+def test_cells_launch_check_refuses_an_off_by_one_count(kernel, off):
+    """Exactly one K1, K2, K1-bwd and K2-bwd a train step (no K3, no K4):
+    one more or one fewer of any is refused, a kernel the path must not
+    run too."""
+    one = {"embedding_bag": 1, "dot_interaction": 1, "embedding_bag_backward": 1,
+           "dot_interaction_backward": 1}
+    good = {**dict.fromkeys(chip_smoke.KERNELS, 0), **one}
+    chip_smoke.expect_cell_launches("step", good, one)
+    bad = dict(good, **{kernel: good[kernel] + off})
+    if bad[kernel] < 0:
+        bad[kernel] = 2
+    with pytest.raises(SystemExit, match="launched"):
+        chip_smoke.expect_cell_launches("step", bad, one)
+
+
 # ----------------------------------------------------------- the lm_moe gates
 
 

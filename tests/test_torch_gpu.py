@@ -844,3 +844,109 @@ def test_distributed_runtime_in_an_nccl_world_of_one(nccl_world_of_one):
     torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(aux["aux_loss"], want_aux["aux_loss"], rtol=2e-5, atol=0)
     assert float(aux["dropped_frac"]) == float(want_aux["dropped_frac"])
+
+
+# ------------------------------------------------- DTensors, one NCCL rank
+
+
+def _one_rank_mesh():
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.make_host_mesh(1, 1)
+
+
+@pytest.mark.parametrize("split", ["columns", "rows"])
+def test_embedding_bag_dtensor_route_launches_k1_and_k1_bwd(nccl_world_of_one, split):
+    """A DTensor table (split by columns, or by rows: a zero row appended,
+    every id on the one rank's range) and ids split over the batch: one K1
+    forward and one K1-bwd, the plain tensors' bits."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as shd
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(rng.normal(size=(3, 500, 32)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 500, size=(64, 3, 8)).astype(np.int32)).to(dev)
+    spec = (None, None, "model") if split == "columns" else (None, "model", None)
+    t_d = distribute_tensor(tables.clone(), mesh, shd.to_placements(mesh, spec))
+    i_d = distribute_tensor(idx, mesh, shd.to_placements(mesh, ("data",)))
+    t_d.requires_grad_(True)
+    plain = tables.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    got = ops.embedding_bag(t_d, i_d, mode="sum")
+    got.to_local().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["embedding_bag"] == 1 and counts["embedding_bag_backward"] == 1, counts
+    want = ops.embedding_bag(plain, idx, mode="sum")
+    want.square().sum().backward()
+    assert torch.equal(got.to_local(), want)
+    assert torch.equal(t_d.grad.full_tensor(), plain.grad)
+
+
+def test_dot_interaction_and_cin_dtensor_routes_launch_their_kernels(nccl_world_of_one):
+    """K2 and K2-bwd, and K3 (no gradient), on DTensors split over the
+    batch: one launch each, the plain tensors' bits."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as shd
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    rng = np.random.default_rng(1)
+    feats = torch.from_numpy(rng.normal(size=(128, 27, 32)).astype(np.float32)).to(dev)
+    f_d = distribute_tensor(feats.clone(), mesh, shd.to_placements(mesh, ("data",)))
+    f_d.requires_grad_(True)
+    plain = feats.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    got = ops.dot_interaction(f_d)
+    got.to_local().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["dot_interaction"] == 1 and counts["dot_interaction_backward"] == 1, counts
+    want = ops.dot_interaction(plain)
+    want.square().sum().backward()
+    assert torch.equal(got.to_local(), want) and torch.equal(f_d.grad.to_local(), plain.grad)
+
+    x0 = torch.from_numpy(rng.normal(size=(64, 39, 10)).astype(np.float32)).to(dev)
+    xk = torch.from_numpy(rng.normal(size=(64, 200, 10)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(200 * 39, 200)).astype(np.float32) / 88).to(dev)
+    batch_split = shd.to_placements(mesh, ("data",))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = ops.cin_layer(distribute_tensor(x0, mesh, batch_split),
+                            distribute_tensor(xk, mesh, batch_split),
+                            distribute_tensor(w, mesh, shd.to_placements(mesh, ())))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["cin_layer"] == 1
+        assert torch.equal(got.to_local(), ops.cin_layer(x0, xk, w))
+
+
+def test_recsys_train_cell_on_dtensors_is_its_unsharded_step(nccl_world_of_one):
+    """DLRM-RMC2's train_batch cell at smoke size, B = 256, on a (1, 1)
+    mesh: its step on DTensors and on plain tensors from the same weights,
+    state and batch give the same bits (loss, every parameter, every
+    optimiser leaf), with one K1, K2, K1-bwd and K2-bwd each."""
+    from repro_torch.launch import steps
+    from repro_torch.serve.runtime import to_device
+    from repro_torch.utils import leaves_with_paths, tree_map
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    cfg = configs.get("dlrm-rmc2").smoke_config
+    cell = steps._recsys_cell("dlrm-rmc2", configs.RecShape("train_batch", 256, "train"), mesh,
+                              smoke=True)
+    params = recsys.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    state = cell.init_state(params)
+    batch = to_device(syn.recsys_batch(np.random.default_rng(0), cfg, 256), dev)
+    sharded = cell.place(tree_map(torch.clone, params), tree_map(torch.clone, state), batch)
+    one = {"embedding_bag": 1, "dot_interaction": 1, "embedding_bag_backward": 1,
+           "dot_interaction_backward": 1, "cin_layer": 0, "decode_attention": 0}
+    for args in (sharded, (params, state, batch)):
+        ops.reset_launch_counts()
+        loss = cell.fn(*args)[2]
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == one
+        if args is sharded:
+            loss_s = loss.to_local()
+    assert torch.equal(loss_s, loss)
+    for got_tree, want_tree in ((sharded[0], params), (sharded[1], state)):
+        got = dict(leaves_with_paths(got_tree))
+        for k, want in leaves_with_paths(want_tree):
+            assert torch.equal(got[k].to_local().to(want.device), want), k

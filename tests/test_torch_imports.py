@@ -46,8 +46,26 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     n_modules = sum(1 for _ in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
     assert int(res.stdout.strip().splitlines()[-1]) == n_modules + 1 >= 86
     for name in ("models.gnn", "configs.gcn_cora", "launch.mesh", "distributed.sharding",
-                 "distributed.collectives", "distributed.pipeline"):
+                 "distributed.collectives", "distributed.pipeline", "launch.steps",
+                 "data.synthetic"):
         assert importlib.util.find_spec(f"repro_torch.{name}") is not None, name
+
+
+def test_the_cell_builder_imports_alone_without_jax():
+    """``import repro_torch.launch.steps`` in a fresh interpreter: the cell
+    builder and what it pulls in (the Spec builders, the sharding rules,
+    make_sharded_moe, the DTensor routes of kernels/ops.py) import no JAX,
+    no triton, and touch no process group."""
+    res = _run("import sys\n"
+               "import repro_torch.launch.steps as s\n"
+               "import torch.distributed as dist\n"
+               "assert s.all_cells() and s.Cell and s.SkippedCell and s.build_cell\n"
+               "assert not dist.is_initialized()\n"
+               "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'repro', 'triton'))\n"
+               "assert not bad, bad\n"
+               "print('OK')\n")
+    assert res.returncode == 0 and "OK" in res.stdout, res.stderr[-2000:]
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():

@@ -1,20 +1,32 @@
-"""The ranks of tests/test_torch_distributed.py's gloo worlds: each a
-process that ``torch.multiprocessing.spawn`` starts, importing torch and
-the port only (no JAX), so that a world starts in seconds."""
+"""The ranks of tests/test_torch_distributed.py's and
+tests/test_torch_cells.py's gloo worlds: each a process that
+``torch.multiprocessing.spawn`` starts, importing torch and the port only
+(no JAX), so that a world starts in seconds."""
+import copy
+import dataclasses
 import os
+import pickle
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import compat
+from repro_torch.configs import LMShape, RecShape, get
+from repro_torch.configs.registry import ArchSpec, register
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import pipeline as pipe
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
 from repro_torch.layers import moe
+from repro_torch.models import lm
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import grad_compress as gc
+from repro_torch.train.microbatch import accumulated_grads
+from repro_torch.utils import leaves_with_paths
 
 
 def _init(rank: int, world: int, rdzv: str) -> None:
@@ -81,5 +93,63 @@ def restore_rank(rank: int, world: int, rdzv: str, ckpt_dir: str, out_dir: str) 
                  local=got["w"].to_local().numpy(), full=got["w"].full_tensor().numpy(),
                  b=got["b"].full_tensor().numpy())
         ckpt.save(ckpt_dir, step + world, got)
+    finally:
+        dist.destroy_process_group()
+
+
+def _full(tree) -> dict:
+    """{path: numpy array} of a tree of DTensors (collectives: every rank
+    calls it)."""
+    return {p: t.full_tensor().detach().numpy() for p, t in leaves_with_paths(tree)}
+
+
+def cells_rank(rank: int, world: int, rdzv: str, in_path: str, out_dir: str) -> None:
+    """Every case of tests/test_torch_cells.py's sharded cells on one rank:
+    the cell built by ``_recsys_cell`` / ``_lm_cell`` on the case's mesh,
+    its arguments placed from the same weights and batch on every rank,
+    one call of its step.  Rank 0 writes what the step gave, whole, to
+    ``out_dir/cells.pkl``: for a train cell the loss, the parameters and the
+    optimiser state after the step; for the others the output."""
+    _init(rank, world, rdzv)
+    try:
+        with open(in_path, "rb") as f:
+            cases = pickle.load(f)
+        out = {}
+        for case in cases:
+            arch = case["arch"]
+            if "embed_dim" in case:                 # a row-sharded variant of a smoke config
+                base = get(case["base"])
+                cfg = dataclasses.replace(base.smoke_config, embed_dim=case["embed_dim"])
+                register(ArchSpec(arch, base.family, cfg, cfg, base.source))
+            mesh = mesh_lib.make_host_mesh(*case["mesh"], device="cpu")
+            if case["family"] == "lm":
+                cell = steps._lm_cell(arch, LMShape(*case["shape"]), mesh, smoke=True)
+            else:
+                cell = steps._recsys_cell(arch, RecShape(*case["shape"]), mesh, smoke=True)
+            params = compat.from_jax_params(case["params"], device="cpu")
+            batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+            res = {}
+            if case.get("microbatches"):
+                # the DTensor batch split on each rank (train/microbatch.py)
+                cfg = get(arch).smoke_config
+                with implicit_replication():
+                    loss, grads = accumulated_grads(
+                        lambda p, b: lm.loss_fn(p, cfg, b),
+                        cell.place(copy.deepcopy(params))[0],
+                        cell.place(params, None, batch)[2], case["microbatches"])
+                res["micro_loss"] = float(loss.full_tensor())
+                res["micro_grads"] = _full(grads)
+            if cell.kind == "train":
+                state = cell.init_state(params)
+                new_p, new_o, loss = cell.fn(*cell.place(params, copy.deepcopy(state), batch))
+                res.update(loss=float(loss.full_tensor()), params=_full(new_p), state=_full(new_o))
+            else:
+                res["out"] = cell.fn(*cell.place(params, batch)).full_tensor().numpy()
+            res["placements"] = {p: str(t.placements) for p, t in
+                                 leaves_with_paths(cell.place(params)[0])}
+            out[case["name"]] = res
+        if rank == 0:
+            with open(os.path.join(out_dir, "cells.pkl"), "wb") as f:
+                pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
