@@ -54,7 +54,10 @@ What it does, one JSON line per phase:
                  sizes: forward at serve_p99 (batch 512), xDeepFM's
                  bulk_forward, MIND's and BERT4Rec's score_candidates over
                  10^6 candidates, each held against a plain-only run and
-                 timed; launch counts zeroed before and read after
+                 timed (host clock, median of 5; CUDA events, median of
+                 20); for MIND and BERT4Rec, the device time of their
+                 lookups (history, candidates) beside the bare gather;
+                 launch counts zeroed before and read after
   serve_xdeepfm  xDeepFM at its published size behind ServingRuntime at a
                  fixed batch size of 512 (no SLA target exists for it, so
                  no controller); exactly one K1 and three K3 per request
@@ -105,6 +108,19 @@ What it does, one JSON line per phase:
                  make_sharded_moe, 4 x 1,024 tokens, against one plain
                  step (loss within rtol 2e-4); each timed, median of 3;
                  within 300 s
+  roofline       the cells phase's three steps counted on fake tensors in a
+                 fake world of one rank (roofline/analysis.py: per-rank
+                 FLOPs by unit, bytes, collectives, each hand-written
+                 kernel's work(), MemTracker's peak) at the sizes the phase
+                 ran: compute, memory and collective terms on the H100's
+                 peaks, the bottleneck, the roofline's share of each
+                 measured step (DTensor and plain; K1 and K1-bwd charged
+                 at every lookup's row, so not a floor), the floor's share
+                 (K1 and K1-bwd at the step's distinct rows; past 1.05 the
+                 phase fails: a step cannot beat its floor), MFU, the dry
+                 run's peak beside max_memory_allocated; each kernel the
+                 step launched must be in the count as often and with its
+                 work(); within 300 s
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -157,9 +173,12 @@ builds the kernels, runs only PHASE (a key of ONLY) and prints its line and
 no result line:
 
   train        the train phase (backward kernels checked and timed)
+  zoo          the zoo phase (a copy of this script in another tree
+               times that tree's lookups the same way)
   gnn          the gnn phase
   dist         the dist phase
   cells        the cells phase
+  roofline     the cells phase, then the roofline line of its steps
   lm_moe       the lm_moe phase
   remote       the remote phase
   k2_timings   K2 timed at the DLRM shapes
@@ -223,6 +242,7 @@ from repro_torch.kernels import cin as cin_kernel  # noqa: E402
 from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
 from repro_torch.kernels import embedding_bag as eb_kernel  # noqa: E402
 from repro_torch.kernels import interaction as ix_kernel  # noqa: E402
+from repro_torch.layers import embedding as emb_lib  # noqa: E402
 from repro_torch.layers import interactions as ix  # noqa: E402
 from repro_torch.layers import moe as moe_lib  # noqa: E402
 from repro_torch.layers.mlp import linear, mlp  # noqa: E402
@@ -237,11 +257,14 @@ from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.loop import train  # noqa: E402
 from repro_torch.train.microbatch import value_and_grad  # noqa: E402
 from repro_torch.utils import leaves_with_paths, param_bytes, tree_map  # noqa: E402
+from repro_torch.core import costs  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.roofline import analysis  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet): the bound's yardstick
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12           # dense, on the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet, roofline/analysis.py):
+# the bound's yardstick
+HBM_BYTES_PER_S = analysis.HBM_BW
+FP32_FLOP_PER_S = analysis.FP32_FLOPS
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}       # rtol = atol, as the CPU sweep
 CIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # K3: tests/test_kernels.py's 1e-4
@@ -331,6 +354,15 @@ REMOTE_MAX_BUCKET = 64
 REMOTE_LOAD = 0.5
 REMOTE_HORIZON_S = 2.0
 REMOTE_SECONDS = 60.0
+
+
+def bound(work: tuple[dict[str, float], float]) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time a kernel's ``work()``
+    (FLOPs by unit, bytes) takes on the card, each unit at its own peak."""
+    flops, nbytes = work
+    t_ops = sum(f / analysis.PEAKS[u] for u, f in flops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def emit(obj: dict) -> None:
@@ -512,11 +544,9 @@ def time_embedding_bag(rng, dev, tables: torch.Tensor, batch: int, ids: str,
     flat_sets = [(s.long() + offs).reshape(batch * f, h) for s in sets]
     distinct = statistics.mean(int(torch.unique(fs).numel()) for fs in flat_sets)
     es = tables.element_size()
-    out_bytes = batch * f * d * es
-    idx_bytes = batch * f * h * 4
-    bytes_moved = distinct * d * es + idx_bytes + out_bytes
-    gathered_bytes = batch * f * h * d * es + idx_bytes + out_bytes
-    flops = 4 * batch * f * h * d                        # Kahan: four adds a row element
+    work = eb_kernel.work(batch, f, h, d, es, rows=distinct)
+    # what the accounting counts (roofline/analysis.py): every lookup's row read
+    accounted = eb_kernel.work(batch, f, h, d, es)
     flat_table = tables.view(f * v, d)
     res = {
         "batch": batch, "ids": ids, "distinct_rows": distinct, "lookups": batch * f * h,
@@ -525,11 +555,10 @@ def time_embedding_bag(rng, dev, tables: torch.Tensor, batch: int, ids: str,
         "plain_ms": device_ms(lambda i: ref.embedding_bag_stacked(tables, sets[i % 8])),
         "library_ms": device_ms(lambda i: torch.nn.functional.embedding_bag(
             flat_sets[i % 8], flat_table, mode="sum")),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
-        else "operations",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
         # the same bound if every lookup had to come from device memory
-        "gathered_bound_ms": gathered_bytes / HBM_BYTES_PER_S * 1e3,
+        "gathered_bound_ms": accounted[1] / HBM_BYTES_PER_S * 1e3,
+        "accounted_flops": accounted[0], "accounted_bytes": accounted[1],
     }
     return res
 
@@ -547,8 +576,7 @@ def time_dot_interaction(gen, dev, batch: int, arch: str = SERVE_ARCH,
     sets = [torch.randn((batch, f, d), generator=gen, device=dev) / d ** 0.5 for _ in range(8)]
     pairs = torch.from_numpy(ref.tril_pairs(f)).to(dev)
     n_out = f * (f - 1) // 2
-    bytes_moved = batch * (f * d + n_out) * 4
-    flops = 2 * batch * n_out * d
+    work = ix_kernel.work(batch, f, d, 4)
 
     def library(i):
         x = sets[i % 8]
@@ -560,9 +588,8 @@ def time_dot_interaction(gen, dev, batch: int, arch: str = SERVE_ARCH,
         "kernel_call_ms": call_ms(lambda i: ops.dot_interaction(sets[i % 8])),
         "plain_ms": device_ms(lambda i: ref.dot_interaction_packed(sets[i % 8])),
         "library_ms": device_ms(library),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
-        else "operations",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+        "accounted_flops": work[0], "accounted_bytes": work[1],
     }
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     if other_store:
@@ -704,7 +731,7 @@ def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
     """K3 at one layer's shape.  Four input sets rotate; w is one matrix
     (a model has one per layer), read again by every block from L2.  The
     bound is the 3xTF32 tensor-core one, max(bytes / 3.35e12, 3·2·M·K·N /
-    495e12); the float32 CUDA-core bound the first K3 was held to is kept
+    494.7e12); the float32 CUDA-core bound the first K3 was held to is kept
     beside it.  ``prepass_ms`` times K3's pre-pass (w into TF32 planes)
     alone; in a launch the main kernel starts while it runs, so its share
     is an upper bound."""
@@ -712,8 +739,8 @@ def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
     w = sets[0][2]
     k = h * f
     flops = 2 * b * d * k * hn + b * d * k          # the FMAs, plus forming each product once
-    tc_flops = 3 * 2 * b * d * k * hn               # three TF32 passes on the tensor cores
-    bytes_moved = (b * f * d + b * h * d + k * hn + b * hn * d) * 4
+    work = cin_kernel.work(b, f, h, hn, d, 4)       # three TF32 passes on the tensor cores
+    tc_flops, bytes_moved = work[0]["tf32"], work[1]
 
     def kernel(i):
         return ops.cin_layer(sets[i % 4][0], sets[i % 4][1], w)
@@ -737,10 +764,8 @@ def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
         # one cuBLAS SGEMM with w (TF32 off, as device.py sets it)
         "library_ms": device_ms(lambda i: torch.matmul(materialised(i), w)),
         "library_matmul_only_ms": device_ms(lambda i: torch.matmul(a0, w)),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, tc_flops / TF32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= tc_flops / TF32_FLOP_PER_S
-        else "operations",
-        "bound_of": "3xTF32 tensor-core operations at 495 TFLOP/s, or bytes at 3.35 TB/s",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+        "bound_of": "3xTF32 tensor-core operations at 494.7 TFLOP/s, or bytes at 3.35 TB/s",
         "fp32_cuda_core_bound_ms": max(bytes_moved / HBM_BYTES_PER_S,
                                        flops / FP32_FLOP_PER_S) * 1e3,
     }
@@ -945,8 +970,9 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
     pos = decode_positions(np.random.default_rng(seed), b, t, pos_kind, dev)
     n_valid = int(pos.clamp(max=t).sum())
     es = sets[0][0].element_size()
-    bytes_moved = n_valid * hkv * d * es * 2 + 2 * b * hq * d * es + 4 * b
-    flops = 4 * n_valid * hq * d
+    work = da_kernel.work(b, hq, hkv, d, t, es, valid=n_valid)
+    accounted = da_kernel.work(b, hq, hkv, d, t, es)     # every slot: what the accounting counts
+    bytes_moved = work[1]
     mask = decode_mask(t, pos)
 
     def kernel(i):
@@ -970,7 +996,8 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
     res = {
         "name": name, "heads": [hq, hkv, d], "batch": b, "slots": t, "pos": pos_kind,
         "valid_slots": n_valid,
-        "bytes": bytes_moved, "flops": flops, "run_slots": k4_run_slots(b, t, hq, hkv, d, es),
+        "bytes": bytes_moved, "flops": work[0]["fp32"],
+        "run_slots": k4_run_slots(b, t, hq, hkv, d, es),
         "max_abs_err_vs_plain": err, "library_max_abs_err_vs_plain": lib_err,
         "kernel_ms": device_ms(kernel, n_iter=max(20, n_sets)),
         "kernel_call_ms": call_ms(kernel, n_iter=max(20, n_sets)),
@@ -978,9 +1005,9 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
         "combine_ms": split["decode_attention_combine"],
         "plain_ms": device_ms(plain, n_iter=3 if big else 20, replays=2 if big else 5),
         "library_ms": device_ms(library, n_iter=5 if big else 20, replays=2 if big else 5),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
-        else "operations",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+        "accounted_bound_ms": bound(accounted)[0],
+        "accounted_flops": accounted[0], "accounted_bytes": accounted[1],
     }
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["achieved_tb_per_s"] = bytes_moved / res["kernel_ms"] / 1e9
@@ -1676,6 +1703,24 @@ def host_ms(fn, n: int = 5) -> tuple[float, object]:
     return statistics.median(times), res
 
 
+# calls of a zoo forward or retrieval timed by CUDA events (median): the host
+# clock's median of 5 spreads by up to 40 % between runs
+ZOO_EVENT_CALLS = 20
+
+
+def lookup_cost(table: torch.Tensor, ids: torch.Tensor) -> dict:
+    """Device time (``device_ms``: CUDA-graph replay) of ``emb_lib.lookup``
+    at ``ids`` beside the bare gather it wraps (``F.embedding``), and the
+    difference: what the id pass and the NaN fill of ``jnp.take``'s
+    semantics cost a lookup."""
+    import torch.nn.functional as F
+    n_iter = 5 if ids.numel() > 100_000 else 20
+    full = device_ms(lambda i: emb_lib.lookup(table, ids), n_iter=n_iter)
+    bare = device_ms(lambda i: F.embedding(ids.long(), table), n_iter=n_iter)
+    torch.cuda.empty_cache()
+    return {"ids": list(ids.shape), "lookup_ms": full, "gather_ms": bare, "extra_ms": full - bare}
+
+
 def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
     """The four zoo models at their published sizes on the card, weights
     from the seed.  Returns the phase's line and xDeepFM's parameters for
@@ -1707,6 +1752,8 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
         row = {"arch": name}
         batch = to_device(syn.recsys_batch(rng, cfg, serve_b, with_label=False), dev)
         row["forward_ms"], got = host_ms(counted(lambda: recsys.forward(params, cfg, batch), cfg))
+        row["forward_event_ms"] = timed_calls(
+            counted(lambda: recsys.forward(params, cfg, batch), cfg), ZOO_EVENT_CALLS)[0]
         if got.shape != (serve_b,):
             fail(f"zoo {name}: forward gave shape {tuple(got.shape)}")
         if cfg.interaction in PLAIN_FORWARD:          # against the plain versions on the card
@@ -1736,8 +1783,12 @@ def zoo(seed: int, dev, gen) -> tuple[dict, dict]:
         if cfg.interaction in ("mind", "bidir-seq"):
             cand = to_device(syn.recsys_batch(rng, cfg, 1, n_candidates=n_cand,
                                               with_label=False), dev)
+            row["lookup_device_ms"] = [lookup_cost(params["item_table"], ids)
+                                       for ids in (batch["history"], cand["candidates"])]
             # retrieval runs no kernel: a launch here breaks the count below
             row["score_ms"], scores = host_ms(lambda: recsys.score_candidates(params, cfg, cand))
+            row["score_event_ms"] = timed_calls(
+                lambda: recsys.score_candidates(params, cfg, cand), ZOO_EVENT_CALLS)[0]
             if scores.shape != (1, n_cand):
                 fail(f"zoo {name}: score_candidates gave shape {tuple(scores.shape)}")
             want = recsys.score_candidates(tree_to(params, "cpu"), cfg, to_device(cand, "cpu"))
@@ -2561,8 +2612,8 @@ def time_embedding_bag_backward(rng, gen, dev, tables: torch.Tensor, batch: int,
     buf = torch.zeros((f, v, d), device=dev)
     launches = [k1_bwd_launcher(g, idx, buf) for g, idx in zip(gs, sets)]
     distinct = distinct_rows(sets, v)
-    bytes_moved = batch * f * d * 4 + batch * f * h * 4 + distinct * d * 4
-    flops = batch * f * h * d
+    work = eb_kernel.backward_work(batch, f, h, d, 4, rows=distinct)
+    accounted = eb_kernel.backward_work(batch, f, h, d, 4)    # every lookup's row stored
     res = {
         "batch": batch, "ids": ids, "distinct_rows": distinct, "lookups": batch * f * h,
         "plan": launches[0][1],
@@ -2578,9 +2629,9 @@ def time_embedding_bag_backward(rng, gen, dev, tables: torch.Tensor, batch: int,
         "plain_ms": call_ms(lambda i: ref.embedding_bag_backward(gs[i % n_sets], sets[i % n_sets],
                                                                  v),
                             n_iter=5, warmup=1) if plain else None,
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
-        else "operations",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+        "accounted_bound_ms": bound(accounted)[0],
+        "accounted_flops": accounted[0], "accounted_bytes": accounted[1],
         "zero_bound_ms": f * v * d * 4 / HBM_BYTES_PER_S * 1e3,
     }
     del buf, launches
@@ -2617,8 +2668,7 @@ def time_dot_interaction_backward(gen, dev, batch: int = TRAIN_BATCH,
     n_out = f * (f - 1) // 2
     xs = [torch.randn((batch, f, d), generator=gen, device=dev) / d ** 0.5 for _ in range(n_sets)]
     gs = [torch.randn((batch, n_out), generator=gen, device=dev) for _ in range(n_sets)]
-    bytes_moved = batch * (2 * f * d + n_out) * 4
-    flops = 2 * batch * f * (f - 1) * d
+    work = ix_kernel.backward_work(batch, f, d, 4)
     pairs = torch.from_numpy(ref.tril_pairs(f)).to(dev)
     xr = [x.clone().requires_grad_() for x in xs[:2]]
     outs = [torch.bmm(x, x.transpose(1, 2)).reshape(batch, f * f)[:, pairs] for x in xr]
@@ -2633,9 +2683,8 @@ def time_dot_interaction_backward(gen, dev, batch: int = TRAIN_BATCH,
                                                                      xs[i % n_sets])),
         "library_ms": call_ms(lambda i: torch.autograd.grad(outs[i % 2], xr[i % 2], gs[i % 2],
                                                             retain_graph=True)),
-        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S
-        else "operations",
+        "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+        "accounted_flops": work[0], "accounted_bytes": work[1],
     }
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     return res
@@ -3256,7 +3305,7 @@ def same_leaves(what: str, got: dict, want: dict) -> dict:
         fail(f"{what}: leaves {sorted(got)} != {sorted(want)}")
     at_tol, err = [], 0.0
     for k, w in want.items():
-        g = got[k].to(w.device)              # AdamW's count lies on the host until placed
+        g = got[k].to(w.device)
         if not torch.equal(g, w):
             err = max(err, grad_compare(f"{what} {k}", g, w))
             at_tol.append(k)
@@ -3350,6 +3399,7 @@ def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
     out.update(runs)
     out["launches_a_step"] = one
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["distinct_rows"] = distinct_rows([batch["sparse"]], cfg.vocab)
     del params, state, batch, sharded, cell
     torch.cuda.empty_cache()
     return out
@@ -3364,6 +3414,7 @@ def cells_serve_xdeepfm(seed: int, dev, gen, mesh, launches: dict) -> dict:
     cfg = configs.get(arch).config
     cell = steps_lib.build_cell(arch, shape, mesh)
     b = configs.RECSYS_SHAPES[shape].batch
+    torch.cuda.reset_peak_memory_stats(dev)
     params = recsys.init(gen, cfg, device=dev)
     batch = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, b,
                                        with_label=False), dev)
@@ -3388,6 +3439,8 @@ def cells_serve_xdeepfm(seed: int, dev, gen, mesh, launches: dict) -> dict:
         err = float((res["sharded"] - res["unsharded"]).abs().max())
         fail(f"cells {arch}: sharded logits differ from unsharded by {err:.3e}")
     out["launches_a_call"] = {**dict.fromkeys(KERNELS, 0), **want_launches}
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["distinct_rows"] = distinct_rows([batch["sparse"]], cfg.vocab)
     del params, batch, sharded, cell
     torch.cuda.empty_cache()
     return out
@@ -3473,14 +3526,171 @@ def cells_phase(seed: int, dev, gen) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- roofline
+
+# a step cannot beat its floor (the roofline with K1 and K1-bwd at the
+# distinct rows the step's ids touch): past this, a count or a constant is wrong
+ROOFLINE_SHARE_GATE = 1.05
+ROOFLINE_SECONDS = 300.0
+
+
+def cell_kernel_work(cfg, batch: int, rows: float | None = None) -> dict[str, tuple[int, tuple]]:
+    """{kernel: (calls a step, its summed ``work()``)} of a recommendation
+    cell's step (``cfg`` float32) at ``batch``: what the count must hold for
+    each kernel the step launches.  With ``rows`` (the distinct rows of
+    the step's ids), K1 and K1-bwd move those rows in place of every
+    lookup's: the work the data needs."""
+
+    def total(works):
+        flops: dict = {}
+        for w in works:
+            for u, x in w[0].items():
+                flops[u] = flops.get(u, 0) + x
+        return flops, sum(w[1] for w in works)
+
+    f, h, d = cfg.n_tables, cfg.hotness, cfg.embed_dim
+    out = {"embedding_bag": (1, eb_kernel.work(batch, f, h, d, 4, rows=rows))}
+    if cfg.interaction == "dot":
+        n = recsys._num_feature_rows(cfg)
+        out["dot_interaction"] = (1, ix_kernel.work(batch, n, d, 4))
+        out["embedding_bag_backward"] = (1, eb_kernel.backward_work(batch, f, h, d, 4,
+                                                                    rows=rows))
+        out["dot_interaction_backward"] = (1, ix_kernel.backward_work(batch, n, d, 4))
+    if cfg.interaction == "cin":
+        hs = (f,) + tuple(cfg.cin_layers[:-1])
+        layers = [cin_kernel.work(batch, f, hk, hn, d, 4) for hk, hn in zip(hs, cfg.cin_layers)]
+        out["cin_layer"] = (len(layers), total(layers))
+    return out
+
+
+def roofline_gate(what: str, roofline_ms: float, steps_ms: dict[str, float],
+                  counted: dict[str, dict], launched: dict[str, int],
+                  expected: dict[str, tuple[int, tuple]]) -> dict[str, float]:
+    """The driven step against its counted floor (``roofline_ms``): the
+    floor's share of each measured step (``steps_ms``: name -> ms), failing
+    past ROOFLINE_SHARE_GATE (a step faster than its floor means a wrong
+    count or constant); every kernel the step launched (``launched``: name ->
+    launches a step) must be in the count (``counted``: the counter's
+    kernels) as often, with the work ``expected`` gives, and the count may
+    hold no kernel the step did not launch."""
+    shares = {name: roofline_ms / ms for name, ms in steps_ms.items()}
+    for name, share in shares.items():
+        if not share <= ROOFLINE_SHARE_GATE:
+            fail(f"roofline {what}: the {name} step ({steps_ms[name]:.4f} ms) is faster than "
+                 f"its roofline floor ({roofline_ms:.4f} ms): share {share:.3f} > "
+                 f"{ROOFLINE_SHARE_GATE}, so a count or a constant is wrong")
+    for k in set(launched) | set(counted):
+        n = launched.get(k, 0)
+        got = counted.get(k, {}).get("calls", 0)
+        if n != got:
+            fail(f"roofline {what}: {k} launched {n} times a step, counted {got} times")
+        if n:
+            calls, (flops, nbytes) = expected[k]
+            if calls != n or dict(counted[k]["flops_by_unit"]) != flops or \
+                    counted[k]["bytes"] != nbytes:
+                fail(f"roofline {what}: {k} counted {counted[k]}, its work() gives "
+                     f"{calls} calls, {flops} FLOPs, {nbytes} bytes")
+    return shares
+
+
+def cell_roofline(cell, specs: tuple | None, steps_ms: dict[str, float], launched: dict,
+                  expected: dict, measured_peak_gb: float, needed: dict | None = None) -> dict:
+    """One driven cell counted on fake tensors (``dryrun.count_cell``: the
+    same cell, size and (1, 1) mesh) and held to its measured steps.  The
+    count charges K1 and K1-bwd at every lookup's row (data-independent
+    work), which K1 beats when ids repeat, so that roofline is no floor:
+    its share is reported, not gated.  The floor takes K1's and K1-bwd's
+    bytes from ``needed`` (``cell_kernel_work`` at the step's distinct
+    rows) in their place; its share is gated."""
+    t0 = time.monotonic()
+    counted = dryrun.count_cell(cell, specs)
+    rf = counted["roofline"]
+    roofline_ms = rf.roofline_time * 1e3
+    launched = {k: v for k, v in launched.items() if v}
+    spare = sum(expected[k][1][1] - needed[k][1][1] for k in launched) if needed else 0
+    floor = dataclasses.replace(rf, bytes_accessed=rf.bytes_accessed - spare)
+    floor_ms = floor.roofline_time * 1e3
+    shares = roofline_gate(cell.name, floor_ms, steps_ms, counted["kernels"], launched,
+                           expected)
+    per_chip = rf.model_flops_per_chip
+    return {"roofline": rf.to_dict(), "roofline_ms": roofline_ms,
+            "t_compute_ms": rf.t_compute * 1e3, "t_memory_ms": rf.t_memory * 1e3,
+            "t_collective_ms": rf.t_collective * 1e3, "bottleneck": rf.bottleneck,
+            "steps_ms": steps_ms,
+            "share_of_roofline": {k: roofline_ms / ms for k, ms in steps_ms.items()},
+            "floor_ms": floor_ms, "floor_t_memory_ms": floor.t_memory * 1e3,
+            "floor_bottleneck": floor.bottleneck, "share_of_floor": shares,
+            "mfu": {k: per_chip / rf.peak_flops / (ms / 1e3) for k, ms in steps_ms.items()},
+            "peak_flops": rf.peak_flops,
+            "dry_run_peak_gb": counted["memory"]["peak_bytes_per_device"] / 1e9,
+            "dry_run_memory": counted["memory"],
+            "max_memory_allocated_gb": measured_peak_gb,
+            "kernels_counted": counted["kernels"], "launches_a_step": launched,
+            # the operations that move the most bytes: [op, bytes, calls]
+            "top_bytes": counted["top_bytes"], "count_s": time.monotonic() - t0}
+
+
+def roofline_phase(cells_line: dict) -> dict:
+    """The cells phase's three steps counted (``roofline.analysis``) in a
+    fake world of one rank on a (1, 1) mesh of the card's device, at the
+    sizes the phase ran, and held to the steps it measured
+    (``roofline_gate``); fails past ROOFLINE_SECONDS."""
+    t0 = time.monotonic()
+    rmc2, xdfm, moe = (cells_line[k] for k in ("rmc2_train_batch", "xdeepfm_serve_p99",
+                                                "granite_moe_train_4k"))
+    line = {"phase": "roofline", "mesh": [1, 1], "gate": ROOFLINE_SHARE_GATE,
+            "peaks": {"hbm_bytes_per_s": analysis.HBM_BW, **analysis.PEAKS,
+                      "nvlink_bytes_per_s": analysis.NVLINK_BW}}
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        arch, shape = CELLS_TRAIN
+        line["rmc2_train_batch"] = cell_roofline(
+            steps_lib.build_cell(arch, shape, mesh), None,
+            {"dtensor": rmc2["sharded"]["step_ms"], "plain": rmc2["unsharded"]["step_ms"]},
+            rmc2["launches_a_step"], cell_kernel_work(configs.get(arch).config, rmc2["batch"]),
+            rmc2["max_memory_allocated_gb"],
+            cell_kernel_work(configs.get(arch).config, rmc2["batch"], rmc2["distinct_rows"]))
+        arch, shape = CELLS_SERVE
+        line["xdeepfm_serve_p99"] = cell_roofline(
+            steps_lib.build_cell(arch, shape, mesh), None,
+            {"dtensor": xdfm["sharded_ms"], "plain": xdfm["unsharded_ms"]},
+            xdfm["launches_a_call"], cell_kernel_work(configs.get(arch).config, xdfm["batch"]),
+            xdfm["max_memory_allocated_gb"],
+            cell_kernel_work(configs.get(arch).config, xdfm["batch"], xdfm["distinct_rows"]))
+        arch, shape = CELLS_LM
+        cfg = configs.get(arch).config
+        cell = steps_lib.build_cell(arch, shape, mesh)
+        # the batch the phase ran, and its model FLOPs
+        cell = dataclasses.replace(cell, model_flops=costs.lm_model_flops(
+            cfg, CELLS_LM_BATCH * CELLS_LM_SEQ, train=True))
+        line["granite_moe_train_4k"] = cell_roofline(
+            cell, (cell.args[0], cell.args[1], syn.lm_specs(cfg, CELLS_LM_BATCH, CELLS_LM_SEQ)),
+            {"dtensor": moe["step_ms"]["sharded"], "plain": moe["step_ms"]["unsharded"]},
+            {}, {}, moe["max_memory_allocated_gb"])
+    line["seconds"] = time.monotonic() - t0
+    if line["seconds"] > ROOFLINE_SECONDS:
+        fail(f"roofline: took {line['seconds']:.1f} s, past {ROOFLINE_SECONDS} s")
+    return line
+
+
+def roofline_only(args, dev, gen) -> dict:
+    """``--only roofline``: the cells phase (its line printed), then the
+    roofline line of its steps."""
+    cells_line = cells_phase(args.seed, dev, gen)
+    emit({**cells_line, "card": card_line()})
+    return roofline_phase(cells_line)
+
+
 # the phases ``--only`` runs alone: (args, device, generator) -> its line
 ONLY = {
     "train": lambda args, dev, gen: train_phase(args.seed, dev, gen),
+    "zoo": lambda args, dev, gen: zoo(args.seed, dev, gen)[0],
     "lm_moe": lambda args, dev, gen: lm_moe(args.seed, dev, gen),
     "remote": lambda args, dev, gen: remote(args.seed),
     "gnn": lambda args, dev, gen: gnn_phase(args.seed, dev, gen),
     "dist": lambda args, dev, gen: dist_phase(args.seed, dev),
     "cells": lambda args, dev, gen: cells_phase(args.seed, dev, gen),
+    "roofline": roofline_only,
     "k2_timings": lambda args, dev, gen: {
         "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
     "bwd_timings": lambda args, dev, gen: bwd_timings(args.seed, dev, gen),
@@ -3601,6 +3811,8 @@ def main() -> None:
     # (about 40 GB at its peak), freed before lm_decode_32k
     celled = cells_phase(args.seed, dev, gen)
     after(celled)
+    # the same three steps counted on fake tensors and held to their roofline
+    after(roofline_phase(celled))
 
     generated = lm_generate(args.seed, dev, gen)
     after(generated)

@@ -132,6 +132,16 @@ def split_w(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+def work(b: int, f: int, h: int, n: int, d: int,
+         itemsize: int) -> tuple[dict[str, float], float]:
+    """K3's work at x0 (B, F, D), xk (B, H, D), w (H·F, N): (FLOPs by unit,
+    bytes).  x0, xk, w read once and the (B, N, D) output written once; the
+    product of M = B·D rows, K = H·F and N columns in three TF32 passes on
+    the tensor cores (3 × 2·M·K·N)."""
+    k = h * f
+    return {"tf32": 3 * 2 * b * d * k * n}, (b * f * d + b * h * d + k * n + b * n * d) * itemsize
+
+
 def launch(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
     """x0 (B, F, D), xk (B, H, D), w (H·F, N), out (B, N, D), contiguous,
     one dtype, on one CUDA device.  The float32 workspaces (w's TF32 hi and

@@ -111,6 +111,18 @@ def cut(batch: int, n_kv_heads: int, max_len: int, head_dim: int, element_size: 
     return Plan(tile=tile, run_slots=run, runs=runs, blocks=pairs * runs, combine_cols=cols)
 
 
+def work(b: int, hq: int, hkv: int, d: int, t: int, itemsize: int,
+         valid: float | None = None) -> tuple[dict[str, float], float]:
+    """K4's work for q (B, Hq, D) against k/v (B, T, Hkv, D): (FLOPs by
+    unit, bytes).  K and V read once up to each sequence's ``pos`` —
+    ``valid`` slots in all, every slot (B·T) unless a run gives the count
+    its positions need — q and ``pos`` read and the output written once;
+    4·Hq·D float32 operations a valid slot (q·k and p·v)."""
+    valid = b * t if valid is None else valid
+    return ({"fp32": 4 * valid * hq * d},
+            valid * hkv * d * itemsize * 2 + 2 * b * hq * d * itemsize + 4 * b)
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
            out: torch.Tensor, split: Plan | None = None) -> None:
     """q (B, Hq, D), k/v (B, T, Hkv, D), pos (B,) int32, out (B, Hq, D),

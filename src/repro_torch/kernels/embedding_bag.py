@@ -143,6 +143,27 @@ def backward_scratch(p: BackwardPlan, b: int, f: int, h: int, d: int) -> dict[st
             "partials": ((f * p.chunks, 2, d), torch.float32)}
 
 
+def work(b: int, f: int, h: int, d: int, itemsize: int,
+         rows: float | None = None) -> tuple[dict[str, float], float]:
+    """K1's work at (B, F, H, D): (FLOPs by unit, bytes).  It reads ``rows``
+    table rows (every lookup's, B·F·H, unless a run gives the count its
+    data needs: distinct rows), the int32 ids once, and writes the (B, F, D)
+    output once; its Kahan sums are four float32 additions a row element.
+    The accounting (``ops`` on fake tensors) and ``chip_smoke.py``'s bounds
+    both call it."""
+    rows = b * f * h if rows is None else rows
+    return {"fp32": 4 * b * f * h * d}, rows * d * itemsize + b * f * h * 4 + b * f * d * itemsize
+
+
+def backward_work(b: int, f: int, h: int, d: int, itemsize: int,
+                  rows: float | None = None) -> tuple[dict[str, float], float]:
+    """K1-bwd's work: grad_out (B, F, D) and the ids read once, ``rows``
+    float32 gradient rows stored once (every lookup's unless a run gives
+    its distinct rows), one float32 addition a lookup's row element."""
+    rows = b * f * h if rows is None else rows
+    return {"fp32": b * f * h * d}, b * f * d * itemsize + b * f * h * 4 + rows * d * 4
+
+
 def _backward_function():
     global _bwd_fn
     if _bwd_fn is None:

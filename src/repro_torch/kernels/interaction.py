@@ -223,6 +223,22 @@ def backward_plan(b: int, f: int, d: int, itemsize: int, sm_count: int) -> Backw
                         grid=max(1, min(b, sm_count * per_sm)), smem=smem)
 
 
+def work(b: int, f: int, d: int, itemsize: int,
+         packed: bool = True) -> tuple[dict[str, float], float]:
+    """K2's work at (B, F, D): (FLOPs by unit, bytes).  The features read
+    once and the output (the strict lower triangle, or the whole Gram
+    matrix unpacked) written once; 2·D float32 operations an output."""
+    n_out = f * (f - 1) // 2 if packed else f * f
+    return {"fp32": 2 * b * n_out * d}, b * (f * d + n_out) * itemsize
+
+
+def backward_work(b: int, f: int, d: int, itemsize: int) -> tuple[dict[str, float], float]:
+    """K2-bwd's work: features and packed gradient read once, the result
+    written once; 2·D float32 operations for each ordered pair i != j."""
+    n_out = f * (f - 1) // 2
+    return {"fp32": 2 * b * f * (f - 1) * d}, b * (2 * f * d + n_out) * itemsize
+
+
 def _backward_function():
     global _bwd_fn
     if _bwd_fn is None:

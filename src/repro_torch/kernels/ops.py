@@ -31,10 +31,21 @@ reduced.  A table split by columns looks up its columns locally and the
 pooled columns are gathered after; a table split by rows looks up the
 rows it holds (every other id reads one zero row appended to the local
 shard) and the pooled partial sums are added across the axis.
+
+Fake tensors.  A fake tensor (``torch._subclasses.fake_tensor``), on
+whatever device, is the accounting's: the wrapper checks what it checks on
+the card, allocates the kernel's output (and K1-bwd's zeroed gradient and
+scratch) with ``torch.empty`` / ``torch.zeros``, and records the kernel's
+work (each kernel module's ``work``) with ``roofline.analysis``'s active
+counters, in place of building and launching it.  No launch is counted.
+A ``cin_layer`` on fake tensors that needs a gradient runs the plain
+version, whose operations the counter sees: there is no K3 backward kernel
+to count.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -43,6 +54,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import interaction as _ix
 from repro_torch.kernels import ref
+from repro_torch.roofline import analysis as _roofline
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -60,6 +72,11 @@ def reset_launch_counts() -> None:
     _ix.launch_count = _ix.backward_launch_count = 0
     _cin.launch_count = 0
     _da.launch_count = 0
+
+
+def _account(name: str, work: tuple[dict[str, float], float]) -> None:
+    """A kernel's work on fake tensors, to the active counters."""
+    _roofline.record_kernel(name, *work)
 
 
 def _needs_grad(*xs: torch.Tensor) -> bool:
@@ -216,20 +233,25 @@ def _on_batch_shards(fn, xs: tuple, weights: tuple = ()) -> DTensor:
 
 def _embedding_bag(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
     stacked = table.ndim == 3
-    if not table.is_cuda:
+    fake = is_fake(table)
+    if not table.is_cuda and not fake:
         if stacked:
             return ref.embedding_bag_stacked(table, idx, mode=mode)
         return ref.embedding_bag(table, idx, mode=mode)
 
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32 on the GPU, got {idx.dtype}")
-    _require_contiguous("table", table)
-    _require_contiguous("idx", idx)
+    if table.is_cuda:
+        if idx.dtype != torch.int32:
+            raise TypeError(f"idx must be int32 on the GPU, got {idx.dtype}")
+        _require_contiguous("table", table)
+        _require_contiguous("idx", idx)
     tables3 = table if stacked else table[None]
     idx3 = idx if stacked else idx[:, None, :]
     out = torch.empty((idx3.shape[0], tables3.shape[0], tables3.shape[2]),
                       dtype=table.dtype, device=table.device)
-    if out.numel():
+    if fake:
+        b, f, h = idx3.shape
+        _account("embedding_bag", _eb.work(b, f, h, tables3.shape[2], table.element_size()))
+    elif out.numel():
         _eb.launch(tables3, idx3, out, mean=(mode == "mean"))
     return out if stacked else out[:, 0, :]
 
@@ -252,25 +274,33 @@ def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor, vocab: int
         raise TypeError(f"grad_out dtype {grad_out.dtype} not supported (float32, bfloat16)")
     if idx.device != grad_out.device:
         raise ValueError(f"idx lies on {idx.device}, grad_out on {grad_out.device}")
-    if not grad_out.is_cuda:
+    fake = is_fake(grad_out)
+    if not grad_out.is_cuda and not fake:
         return ref.embedding_bag_backward(grad_out, idx, vocab, mode=mode)
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32 on the GPU, got {idx.dtype}")
-    if grad_out.shape[2] > _eb.MAX_BACKWARD_D:
-        raise ValueError(f"the backward kernel takes D <= {_eb.MAX_BACKWARD_D}, "
-                         f"got {grad_out.shape[2]}")
-    _require_contiguous("grad_out", grad_out)
-    _require_contiguous("idx", idx)
+    if grad_out.is_cuda:
+        if idx.dtype != torch.int32:
+            raise TypeError(f"idx must be int32 on the GPU, got {idx.dtype}")
+        if grad_out.shape[2] > _eb.MAX_BACKWARD_D:
+            raise ValueError(f"the backward kernel takes D <= {_eb.MAX_BACKWARD_D}, "
+                             f"got {grad_out.shape[2]}")
+        _require_contiguous("grad_out", grad_out)
+        _require_contiguous("idx", idx)
     b, f, h = idx.shape
     d = grad_out.shape[2]
     grad = torch.zeros((f, vocab, d), dtype=torch.float32, device=grad_out.device)
     if grad_out.numel() and h:
-        plan = _eb.backward_plan(b, f, vocab, h, d, grad_out.element_size(),
-                                 _eb.backward_vectorized(grad_out))
+        # a fresh allocation starts on a 16-byte boundary on the card
+        vectorized = (d * grad_out.element_size() % 16 == 0 if fake
+                      else _eb.backward_vectorized(grad_out))
+        plan = _eb.backward_plan(b, f, vocab, h, d, grad_out.element_size(), vectorized)
         scratch = {name: torch.empty(shape, dtype=dtype, device=grad_out.device)
                    for name, (shape, dtype) in _eb.backward_scratch(plan, b, f, h, d).items()}
-        _eb.launch_backward(grad_out, idx, grad, mean=(mode == "mean"), plan=plan,
-                            scratch=scratch)
+        if fake:
+            _account("embedding_bag_backward",
+                     _eb.backward_work(b, f, h, d, grad_out.element_size()))
+        else:
+            _eb.launch_backward(grad_out, idx, grad, mean=(mode == "mean"), plan=plan,
+                                scratch=scratch)
     return grad
 
 
@@ -301,12 +331,18 @@ def _interaction(feats: torch.Tensor, *, packed: bool) -> torch.Tensor:
         raise ValueError(f"expected feats (B, F, D), got {tuple(feats.shape)}")
     if feats.dtype not in _DTYPES:
         raise TypeError(f"feats dtype {feats.dtype} not supported (float32, bfloat16)")
-    if not feats.is_cuda:
+    fake = is_fake(feats)
+    if not feats.is_cuda and not fake:
         return ref.dot_interaction_packed(feats) if packed else ref.gram(feats)
-    _require_contiguous("feats", feats)
+    if feats.is_cuda:
+        _require_contiguous("feats", feats)
     b, f, d = feats.shape
-    plan = _ix.plan(b, f, d, feats.element_size(), packed, _ix.sm_count(feats.device.index))
     n_out = f * (f - 1) // 2 if packed else f * f
+    if fake:
+        out = torch.empty((b, n_out), dtype=feats.dtype, device=feats.device)
+        _account("dot_interaction", _ix.work(b, f, d, feats.element_size(), packed))
+        return out
+    plan = _ix.plan(b, f, d, feats.element_size(), packed, _ix.sm_count(feats.device.index))
     out = torch.empty((b, n_out), dtype=feats.dtype, device=feats.device)
     if out.numel():
         _ix.launch(feats, out, plan, packed=packed)
@@ -347,10 +383,15 @@ def dot_interaction_backward(grad: torch.Tensor, feats: torch.Tensor) -> torch.T
                         f"{grad.dtype}, {feats.dtype}")
     if grad.device != feats.device:
         raise ValueError(f"grad lies on {grad.device}, feats on {feats.device}")
-    if not feats.is_cuda:
+    fake = is_fake(feats)
+    if not feats.is_cuda and not fake:
         return ref.dot_interaction_backward(grad, feats)
-    _require_contiguous("grad", grad)
-    _require_contiguous("feats", feats)
+    if feats.is_cuda:
+        _require_contiguous("grad", grad)
+        _require_contiguous("feats", feats)
+    if fake:
+        _account("dot_interaction_backward", _ix.backward_work(b, f, d, feats.element_size()))
+        return torch.empty_like(feats)
     plan = _ix.backward_plan(b, f, d, feats.element_size(), _ix.sm_count(feats.device.index))
     out = torch.empty_like(feats)
     if out.numel():
@@ -395,13 +436,19 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
         raise ValueError(f"x0 lies on {x0.device}, xk on {xk.device}, w on {w.device}")
     if any(isinstance(t, DTensor) for t in (x0, xk, w)):
         return _on_batch_shards(cin_layer, (x0, xk), (w,))
-    _no_backward_kernel("cin_layer", "K3's backward kernel is queued in ROADMAP.md", x0, xk, w)
-    if not x0.is_cuda:
+    fake = is_fake(x0)
+    if fake and _needs_grad(x0, xk, w):
         return ref.cin_layer(x0, xk, w)
-    for name, t in (("x0", x0), ("xk", xk), ("w", w)):
-        _require_contiguous(name, t)
+    _no_backward_kernel("cin_layer", "K3's backward kernel is queued in ROADMAP.md", x0, xk, w)
+    if not x0.is_cuda and not fake:
+        return ref.cin_layer(x0, xk, w)
+    if x0.is_cuda:
+        for name, t in (("x0", x0), ("xk", xk), ("w", w)):
+            _require_contiguous(name, t)
     out = torch.empty((b, w.shape[1], d), dtype=x0.dtype, device=x0.device)
-    if out.numel():
+    if fake:
+        _account("cin_layer", _cin.work(b, f, h, w.shape[1], d, x0.element_size()))
+    elif out.numel():
         _cin.launch(x0, xk, w, out)
     return out
 
@@ -433,15 +480,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q lies on {q.device}, k on {k.device}, v on {v.device}, "
                          f"pos on {pos.device}")
     _no_backward_kernel("decode_attention", "K4 serves decoding only", q, k, v)
-    if not q.is_cuda:
+    fake = is_fake(q)
+    if not q.is_cuda and not fake:
         return ref.decode_attention(q, k, v, pos)
-    if pos.dtype != torch.int32:
-        raise TypeError(f"pos must be int32 on the GPU, got {pos.dtype}")
-    if d not in _da.HEAD_DIMS or hq // hkv not in _da.GROUPS:
-        raise ValueError(f"the kernel takes D in {_da.HEAD_DIMS} and Hq/Hkv in {_da.GROUPS}, "
-                         f"got D={d}, Hq/Hkv={hq // hkv}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos)):
-        _require_contiguous(name, x)
+    if q.is_cuda:
+        if pos.dtype != torch.int32:
+            raise TypeError(f"pos must be int32 on the GPU, got {pos.dtype}")
+        if d not in _da.HEAD_DIMS or hq // hkv not in _da.GROUPS:
+            raise ValueError(f"the kernel takes D in {_da.HEAD_DIMS} and Hq/Hkv in "
+                             f"{_da.GROUPS}, got D={d}, Hq/Hkv={hq // hkv}")
+        for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos)):
+            _require_contiguous(name, x)
+    if fake:
+        _account("decode_attention", _da.work(b, hq, hkv, d, t, q.element_size()))
+        return torch.empty_like(q)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")

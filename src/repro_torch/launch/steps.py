@@ -13,8 +13,8 @@ its shards, through the hand-written kernels where the model calls them
 the step on one device.
 
 The port builds the recommendation cells (train, serve, retrieval) and the
-LM training cells.  The LM prefill and decode cells raise
-``NotImplementedError``: a KV cache whose heads do not divide the model
+LM training cells.  The LM prefill and decode cells raise ``NotBuilt``
+(a ``NotImplementedError``): a KV cache whose heads do not divide the model
 axis is split over time, and K4 returns no log-sum-exp to merge the
 ranks' softmaxes.  The GNN cells raise it too: their sums over edges split
 across ranks need a fixed-order design of their own.  Both are the next
@@ -52,7 +52,7 @@ from repro_torch.models import lm, recsys
 from repro_torch.train import optim
 from repro_torch.train.microbatch import accumulated_grads, value_and_grad
 
-_NEXT = "ROADMAP.md queue 1 item 5"
+_NEXT = "ROADMAP.md queue 1 item 2"
 
 
 @dataclasses.dataclass
@@ -70,6 +70,7 @@ class Cell:
     mesh: DeviceMesh
     note: str = ""
     init_state: Callable | None = None   # train: params → the optimiser's state
+    n_micro: int = 1                 # LM train: microbatches a step
 
     @property
     def name(self) -> str:
@@ -88,6 +89,12 @@ class Cell:
 
 class SkippedCell(Exception):
     pass
+
+
+class NotBuilt(NotImplementedError):
+    """A cell the port does not build yet (the LM prefill and decode cells,
+    the GNN cells): ``launch/dryrun.py`` counts these apart from skipped and
+    failed cells."""
 
 
 # ------------------------------------------------------------------ trees
@@ -200,7 +207,8 @@ def _serving(fn):
 
 
 def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False,
-             fsdp: bool = False, layers_override: int | None = None) -> Cell:
+             fsdp: bool = False, layers_override: int | None = None,
+             n_micro: int | None = None) -> Cell:
     spec = get(arch)
     cfg = spec.smoke_config if smoke else spec.config
     if layers_override is not None:
@@ -210,7 +218,7 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
             f"{arch}×{shape.name}: pure full-attention arch; 524k decode "
             "needs sub-quadratic attention (DESIGN.md §Arch-applicability)")
     if shape.kind != "train":
-        raise NotImplementedError(
+        raise NotBuilt(
             f"{arch}×{shape.name}: the LM {shape.kind} cells are not built yet ({_NEXT}): "
             "a KV cache whose heads do not divide the model axis is split over time, "
             "and K4 returns no log-sum-exp to merge the ranks' softmaxes")
@@ -229,7 +237,8 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
     batch_specs = syn.lm_specs(cfg, shape.global_batch, shape.seq_len)
     b_specs = _spec_tree(batch_specs, shd.lm_batch_pspecs(batch_specs, baxes))
     # microbatch ladder: activation memory ∝ tokens a microbatch
-    n_micro = 8 if cfg.param_count > 2e10 else (4 if cfg.param_count > 2e9 else 1)
+    if n_micro is None:
+        n_micro = 8 if cfg.param_count > 2e10 else (4 if cfg.param_count > 2e9 else 1)
     step = _train_step(lambda p, b: lm.loss_fn(p, cfg, b, moe_fn=moe_fn), opt, n_micro)
 
     tokens = shape.global_batch * shape.seq_len
@@ -240,7 +249,7 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
                 in_specs, tuple(_placements(mesh, s) for s in in_specs),
                 out_specs, tuple(_placements(mesh, s) for s in out_specs),
                 costs.lm_model_flops(cfg, tokens, train=True), mesh,
-                note=f"microbatches={n_micro}", init_state=opt.init)
+                note=f"microbatches={n_micro}", init_state=opt.init, n_micro=n_micro)
 
 
 # --------------------------------------------------------------- recsys
@@ -306,20 +315,23 @@ def _recsys_cell(arch: str, shape: RecShape, mesh: DeviceMesh, *, smoke: bool = 
 
 
 def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *, smoke: bool = False,
-               fsdp: bool = False, layers_override: int | None = None) -> Cell:
+               fsdp: bool = False, layers_override: int | None = None,
+               n_micro: int | None = None) -> Cell:
     """The cell of ``arch`` at ``shape_name`` on ``mesh`` (axes ``data`` and
     ``model``, ``launch/mesh.py``).  Raises ``SkippedCell`` where the
-    reference skips (``long_500k``), ``NotImplementedError`` for the LM
-    prefill/decode and GNN cells (see the module's docstring)."""
+    reference skips (``long_500k``), ``NotBuilt`` (a ``NotImplementedError``)
+    for the LM prefill/decode and GNN cells (see the module's docstring).
+    ``n_micro`` sets an LM training cell's microbatches (by default the
+    reference's ladder on the config's size, after ``layers_override``)."""
     spec = get(arch)
     shape = shapes_for_family(spec.family)[shape_name]
     if spec.family == "lm":
         return _lm_cell(arch, shape, mesh, smoke=smoke, fsdp=fsdp,
-                        layers_override=layers_override)
+                        layers_override=layers_override, n_micro=n_micro)
     if spec.family == "recsys":
         return _recsys_cell(arch, shape, mesh, smoke=smoke)
     if spec.family == "gnn":
-        raise NotImplementedError(
+        raise NotBuilt(
             f"{arch}×{shape_name}: the GNN cells are not built yet ({_NEXT}): their sums "
             "over edges split across ranks need a fixed-order design of their own")
     raise ValueError(spec.family)

@@ -19,6 +19,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import flags
 from repro_torch.kernels import ops
 from repro_torch.layers.mlp import init_linear, linear
 
@@ -72,10 +73,13 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     (B, Hkv, G, q_chunk, kv_chunk) instead of (…, S, T).  q (B, S, Hq, D),
     k/v (B, T, Hkv, D) → (B, S, Hq, D).  Scores, running max and sum are
     float32; each chunk's probabilities are cast to v's dtype for the
-    product with v, as the JAX package's ``flash_sdpa`` does."""
+    product with v, as the JAX package's ``flash_sdpa`` does.  Under
+    ``flags.unrolled_scans()`` (the accounting tools) the chunks are
+    ``flags.ACCOUNTING_FLASH_CHUNKS``."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    q_chunk, kv_chunk = flags.flash_chunks(q_chunk, kv_chunk)
     qc, kc = min(q_chunk, s), min(kv_chunk, t)
     if s % qc or t % kc:
         raise ValueError(f"S={s} and T={t} must be multiples of the chunks {qc}, {kc}")

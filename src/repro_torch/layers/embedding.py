@@ -33,14 +33,27 @@ def init_table(generator: torch.Generator, vocab: int, dim: int, *,
 
 
 def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table (V, D)`` at ``idx`` → ``(*idx.shape, D)``: indexing's
-    values, through ``F.embedding``.  A DTensor table, split by rows or by
-    columns, is looked up on each rank's shard (``ops.on_table_shards``);
-    what comes out is split as ``idx`` is."""
+    """Rows of ``table (V, D)`` at ``idx`` → ``(*idx.shape, D)``, with
+    ``jnp.take``'s values: an id in ``[-V, 0)`` counts from the end, and an
+    id outside ``[-V, V)`` gives a row of NaN.  Five elementwise operations
+    over the ids (a cast to int64, two compares and an or for the
+    out-of-range mask, a ``remainder``), the gather (``F.embedding``), and
+    one ``masked_fill_`` in place over the gathered rows (it reads the mask
+    and every row and writes every row back, NaN where the id is out of
+    range).  A DTensor table, split by rows or by columns, is looked up on
+    each rank's shard (``ops.on_table_shards``); what comes out is split as
+    ``idx`` is."""
+    v = table.shape[0]
+    ids = idx.long()
+    bad = (ids < -v) | (ids >= v)
+    ids = torch.remainder(ids, v)
     if isinstance(table, DTensor):
-        return ops.on_table_shards(table, idx, lambda t, ids: F.embedding(ids.long(), t),
-                                   idx.ndim)
-    return F.embedding(idx.long(), table)
+        rows = ops.on_table_shards(table, ids, lambda t, i: F.embedding(i, t), idx.ndim)
+        if not isinstance(bad, DTensor):
+            bad = ops._as_dtensor(bad, rows)
+    else:
+        rows = F.embedding(ids, table)
+    return rows.masked_fill_(bad.unsqueeze(-1), float("nan"))
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mode: str = "sum",

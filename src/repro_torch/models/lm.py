@@ -143,7 +143,7 @@ def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor, *, moe_fn=None):
     """tokens (B, S) int → (final hidden state (B, S, d_model), the sum of
     the MoE layers' auxiliary losses, a float32 scalar: 0 for a dense
     config).  ``moe_fn`` replaces ``apply_moe`` in the MoE layers (see
-    ``_ffn``).  The token lookup is ``layers.embedding.lookup``: indexing's
+    ``_ffn``).  The token lookup is ``layers.embedding.lookup``: ``jnp.take``'s
     values, and a vocabulary split over a mesh axis is added up."""
     x = emb_lib.lookup(params["embed"], tokens)
     freqs = _freqs(cfg, x.device)
@@ -230,7 +230,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int):
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit caches of {max_len} slots")
-    x = params["embed"][tokens.long()]
+    x = emb_lib.lookup(params["embed"], tokens)
     freqs = _freqs(cfg, x.device)
     caches = init_caches(cfg, b, max_len, device=x.device)
     for layer, cache in zip(params["layers"], caches):
@@ -244,7 +244,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict]):
     """token (B,) int → (logits (B, V), caches).  One decode step; each
     layer's new K/V are written in place into ``caches`` (the list
     returned holds the same tensors, with ``pos`` advanced by one)."""
-    x = params["embed"][token.long()][:, None]                       # (B, 1, D)
+    x = emb_lib.lookup(params["embed"], token)[:, None]              # (B, 1, D)
     freqs = _freqs(cfg, x.device)
     new_caches = []
     for layer, cache in zip(params["layers"], caches):

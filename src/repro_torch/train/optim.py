@@ -17,7 +17,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.utils import leaves_with_paths, tree_leaves, tree_map
@@ -33,6 +32,12 @@ class Optimizer(NamedTuple):
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _device(tree: PyTree) -> torch.device | None:
+    """The device of the tree's first leaf (None for an empty tree)."""
+    leaves = tree_leaves(tree)
+    return leaves[0].device if leaves else None
 
 
 def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
@@ -75,15 +80,22 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return {"mu": tree_map(_zeros32, params), "nu": tree_map(_zeros32, params),
-                "count": torch.zeros((), dtype=torch.int32)}
+                "count": torch.zeros((), dtype=torch.int32, device=_device(params))}
 
     @torch.no_grad()
     def update(grads, state, params):
-        count = state["count"] + 1
-        n = np.float32(int(count))
-        # the bias corrections in float32, as the reference computes them
-        c1 = float(np.float32(1) - np.float32(b1) ** n)
-        c2 = float(np.float32(1) - np.float32(b2) ** n)
+        # the bias corrections in float32 on the parameters' device, as the
+        # reference computes them on its own: no read to the host, so a step
+        # neither synchronises nor stops a trace on fake tensors.  The count
+        # lives there from ``init`` on (a count kept elsewhere is moved),
+        # so every path divides by a tensor of that device alike: a 0-d
+        # host tensor would make the division a multiplication by its
+        # reciprocal on the card, which rounds otherwise
+        dev = _device(params)
+        count = (state["count"] if dev is None else state["count"].to(dev)) + 1
+        n = count.float()
+        c1 = 1 - b1 ** n
+        c2 = 1 - b2 ** n
 
         def one(p, g, m, v):
             g = g.float()

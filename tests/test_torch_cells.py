@@ -6,7 +6,7 @@ built at smoke size on a (2, 4) ``(data, model)`` mesh of a fake world of 8
 ranks, has the reference's kind, argument shapes and dtypes, partition
 specs (parameters, optimiser state, batch), ``model_flops`` and note; the
 reference's cells are built once in a subprocess with 8 host devices
-(``conftest.run_in_devices``).
+(``torch_reference_cells.reference_cells``).
 
 Numbers: one module-scoped gloo world of 4 CPU ranks (``tests/
 torch_dist_ranks.py::cells_rank``) runs each case's cell on DTensors from
@@ -25,7 +25,6 @@ axis, on (2, 2).  On (2, 2) each data shard of granite-moe dispatches its
 own tokens at its own capacity, so its one-device meaning applies the MoE
 layer to each half of the batch apart (in both packages)."""
 import dataclasses
-import json
 import pickle
 import re
 
@@ -39,7 +38,7 @@ import torch.multiprocessing as mp
 from torch.distributed.tensor import Replicate, Shard
 
 import torch_dist_ranks as ranks
-from conftest import run_in_devices
+from torch_reference_cells import reference_cells  # noqa: F401  (a fixture)
 from repro import configs as jax_configs
 from repro.data import synthetic as jax_syn
 from repro.launch import steps as jax_steps
@@ -133,45 +132,6 @@ def test_gnn_specs_equal_the_reference(which):
     assert _flat_specs(x) == _flat_specs(jx)
     assert [(_flat_specs(e), s, d) for e, s, d in blocks] == \
         [(_flat_specs(e), s, d) for e, s, d in jblocks]
-
-
-REFERENCE_CELLS = """
-import json
-import jax, numpy as np
-from jax.sharding import NamedSharding
-from repro.launch import steps
-from repro.launch.mesh import make_host_mesh
-
-mesh = make_host_mesh(2, 4)
-
-def listed(s):
-    return [list(a) if isinstance(a, tuple) else a for a in tuple(s)]
-
-def flat(tree, leaf, is_leaf=None):
-    pairs = jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_leaf)[0]
-    return {jax.tree_util.keystr(k): leaf(v) for k, v in pairs}
-
-out = {}
-for arch, shape in CELLS:
-    c = steps.build_cell(arch, shape, mesh, smoke=True)
-    out[arch + "|" + shape] = {
-        "kind": c.kind, "note": c.note, "model_flops": float(c.model_flops),
-        "args": [flat(a, lambda s: [list(s.shape), np.dtype(s.dtype).name]) for a in c.args],
-        "specs": [flat(sh, lambda ns: listed(ns.spec),
-                       is_leaf=lambda x: isinstance(x, NamedSharding)) for sh in c.in_shardings]}
-with open(OUT, "w") as f:
-    json.dump(out, f)
-print("OK")
-"""
-
-
-@pytest.fixture(scope="module")
-def reference_cells(tmp_path_factory):
-    out = tmp_path_factory.mktemp("cells") / "reference.json"
-    stdout = run_in_devices(f"CELLS = {META_CELLS!r}\nOUT = {str(out)!r}\n" + REFERENCE_CELLS,
-                            n_devices=8)
-    assert "OK" in stdout
-    return json.loads(out.read_text())
 
 
 @pytest.fixture(scope="module")

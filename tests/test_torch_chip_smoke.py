@@ -437,3 +437,95 @@ def test_remote_workers_in_a_pid_namespace_must_still_show_on_the_card(fault):
         with pytest.raises(SystemExit, match="compute apps|device file"):
             run()
     assert chip_smoke.parse_compute_apps("No running processes found\n") == []
+
+
+# ------------------------------------------------------------ roofline gate
+
+def _rmc2_count(batch: int = 64):
+    from repro_torch import configs
+    cfg = configs.get("dlrm-rmc2").config
+    want = chip_smoke.cell_kernel_work(cfg, batch)
+    counted = {k: {"calls": n, "flops_by_unit": dict(w[0]), "bytes": w[1]}
+               for k, (n, w) in want.items()}
+    return want, counted, {k: 1 for k in want}
+
+
+def test_roofline_gate_passes_a_step_at_or_above_its_roofline():
+    want, counted, launched = _rmc2_count()
+    shares = chip_smoke.roofline_gate("rmc2", 10.0, {"plain": 10.0 / 1.05, "dtensor": 40.0},
+                                      counted, launched, want)
+    assert shares == {"plain": pytest.approx(1.05), "dtensor": 0.25}
+
+
+@pytest.mark.parametrize("share", [1.06, 2.0, float("nan")])
+def test_roofline_gate_refuses_a_step_faster_than_its_roofline(share):
+    want, counted, launched = _rmc2_count()
+    with pytest.raises(SystemExit, match="faster than its roofline"):
+        chip_smoke.roofline_gate("rmc2", 10.0, {"plain": 10.0 / share, "dtensor": 40.0},
+                                 counted, launched, want)
+
+
+@pytest.mark.parametrize("fault", ["missing", "counted_twice", "not_launched", "other_work"])
+def test_roofline_gate_refuses_a_count_that_is_not_the_launches(fault):
+    want, counted, launched = _rmc2_count()
+    if fault == "missing":               # a launched kernel the count left out
+        del counted["dot_interaction_backward"]
+    elif fault == "counted_twice":
+        counted["embedding_bag"]["calls"] = 2
+    elif fault == "not_launched":        # a count the step's launches do not show
+        del launched["embedding_bag_backward"]
+    else:                                # the kernel at another shape's work
+        counted["dot_interaction"]["bytes"] += 4
+    with pytest.raises(SystemExit, match="roofline rmc2"):
+        chip_smoke.roofline_gate("rmc2", 1.0, {"plain": 10.0}, counted, launched, want)
+
+
+@pytest.mark.parametrize("arch,shape", [("dlrm-rmc2", "train_batch"), ("xdeepfm", "serve_p99")])
+def test_a_cells_count_holds_its_kernels_work(arch, shape):
+    """The roofline phase's count of a cell (smoke size, a fake world of one
+    rank, a CPU mesh) holds each kernel the step launches with its work()."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, steps
+    cfg = configs.get(arch).smoke_config
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        cell = steps.build_cell(arch, shape, mesh, smoke=True)
+        b = configs.RECSYS_SHAPES[shape].batch
+        want = chip_smoke.cell_kernel_work(cfg, b)
+        res = chip_smoke.cell_roofline(cell, None, {"plain": 1e6}, {k: n for k, (n, _) in
+                                                                  want.items()}, want, 0.0)
+    assert set(res["kernels_counted"]) == set(want)
+    assert res["roofline_ms"] > 0 and res["share_of_roofline"]["plain"] < 1
+    assert res["dry_run_peak_gb"] > 0
+
+
+def test_the_gate_holds_a_step_to_its_floor_at_the_distinct_rows():
+    """K1 and K1-bwd are counted at every lookup's row, which a step whose
+    ids repeat beats: a step 1.1 times faster than that roofline passes when
+    the floor, with K1's and K1-bwd's bytes at the step's distinct rows,
+    stays under it, and one faster than the floor fails."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, steps
+    cfg = configs.get("dlrm-rmc2").smoke_config
+    b = configs.RECSYS_SHAPES["train_batch"].batch
+    want = chip_smoke.cell_kernel_work(cfg, b)
+    needed = chip_smoke.cell_kernel_work(cfg, b, rows=1.0)
+    launched = {k: n for k, (n, _) in want.items()}
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        cell = steps.build_cell("dlrm-rmc2", "train_batch", mesh, smoke=True)
+        probe = chip_smoke.cell_roofline(cell, None, {"plain": 1e6}, launched, want, 0.0, needed)
+        spare = sum(want[k][1][1] - needed[k][1][1] for k in want)
+        assert spare > 0 and probe["floor_ms"] < probe["roofline_ms"]
+        assert probe["floor_t_memory_ms"] == pytest.approx(
+            (probe["roofline"]["bytes_accessed"] - spare) / chip_smoke.analysis.HBM_BW * 1e3)
+        step = probe["roofline_ms"] / 1.1
+        assert step > probe["floor_ms"]
+        res = chip_smoke.cell_roofline(cell, None, {"plain": step}, launched, want, 0.0, needed)
+        assert res["share_of_roofline"]["plain"] == pytest.approx(1.1)
+        assert res["share_of_floor"]["plain"] < 1
+        with pytest.raises(SystemExit, match="faster than its roofline"):
+            chip_smoke.cell_roofline(cell, None, {"plain": probe["floor_ms"] / 1.1}, launched,
+                                     want, 0.0, needed)

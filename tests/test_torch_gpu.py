@@ -950,3 +950,96 @@ def test_recsys_train_cell_on_dtensors_is_its_unsharded_step(nccl_world_of_one):
         got = dict(leaves_with_paths(got_tree))
         for k, want in leaves_with_paths(want_tree):
             assert torch.equal(got[k].to_local().to(want.device), want), k
+
+
+# ------------------------------------------- accounting on fake CUDA tensors
+
+
+@pytest.fixture
+def smoke_script(dev):
+    """chip_smoke.py imported (its timing functions print the figures the
+    accounting must equal)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def _counted_on_fake_cuda(fn, *shapes_dtypes):
+    """The counter's kernels after ``fn`` on fake CUDA tensors of these
+    shapes and dtypes, and the launches it made (none)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline import analysis
+    with FakeTensorMode():
+        args = [torch.empty(s, dtype=d, device="cuda") for s, d in shapes_dtypes]
+    before = ops.launch_counts()
+    _, c = analysis.count(fn, tuple(args))
+    assert ops.launch_counts() == before
+    return c.kernels
+
+
+def _figure(timing: dict) -> tuple[dict, int]:
+    return dict(timing["accounted_flops"]), timing["accounted_bytes"]
+
+
+def _kernel_work(kernels: dict, name: str) -> tuple[dict, int]:
+    k = kernels[name]
+    assert k["calls"] == 1
+    return dict(k["flops_by_unit"]), k["bytes"]
+
+
+def test_accounted_embedding_bag_is_its_timing_figure(smoke_script):
+    rng = np.random.default_rng(0)
+    tables = torch.randn((4, 1000, 32), device="cuda")
+    t = smoke_script.time_embedding_bag(rng, tables.device, tables, 64, "zipf", h=8)
+    got = _counted_on_fake_cuda(ops.embedding_bag, ((4, 1000, 32), torch.float32),
+                                ((64, 4, 8), torch.int32))
+    assert _kernel_work(got, "embedding_bag") == _figure(t)
+    assert t["gathered_bound_ms"] == t["accounted_bytes"] / smoke_script.HBM_BYTES_PER_S * 1e3
+
+
+def test_accounted_embedding_bag_backward_is_its_timing_figure(smoke_script):
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tables = torch.randn((4, 1000, 32), device="cuda")
+    t = smoke_script.time_embedding_bag_backward(rng, gen, tables.device, tables, 64, "zipf",
+                                                 h=8, n_sets=2, plain=False)
+    got = _counted_on_fake_cuda(lambda g, i: ops.embedding_bag_backward(g, i, 1000),
+                                ((64, 4, 32), torch.float32), ((64, 4, 8), torch.int32))
+    assert _kernel_work(got, "embedding_bag_backward") == _figure(t)
+
+
+def test_accounted_dot_interaction_and_backward_are_their_timing_figures(smoke_script):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    fwd = smoke_script.time_dot_interaction(gen, dev, 64, "dlrm-rmc1", other_store=False)
+    bwd = smoke_script.time_dot_interaction_backward(gen, dev, 64, "dlrm-rmc1", n_sets=2)
+    b, f, d = fwd["shape"]
+    got = _counted_on_fake_cuda(ops.dot_interaction, ((b, f, d), torch.float32))
+    assert _kernel_work(got, "dot_interaction") == _figure(fwd)
+    got = _counted_on_fake_cuda(ops.dot_interaction_backward,
+                                ((b, f * (f - 1) // 2), torch.float32), ((b, f, d), torch.float32))
+    assert _kernel_work(got, "dot_interaction_backward") == _figure(bwd)
+
+
+def test_accounted_cin_layer_is_its_timing_figure(smoke_script):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, f, h, hn, d = 8, 5, 4, 6, 10
+    t = smoke_script.time_cin_layer(gen, torch.device("cuda"), b, f, h, hn, d)
+    got = _counted_on_fake_cuda(ops.cin_layer, ((b, f, d), torch.float32),
+                                ((b, h, d), torch.float32), ((h * f, hn), torch.float32))
+    assert _kernel_work(got, "cin_layer") == ({"tf32": t["tensor_core_flops"]}, t["bytes"])
+
+
+def test_accounted_decode_attention_is_its_timing_figure(smoke_script):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hq, hkv, d = smoke_script.k4_heads()
+    t = smoke_script.time_decode_attention(0, gen, torch.device("cuda"), "accounting", 2, 256,
+                                           "uniform")
+    got = _counted_on_fake_cuda(
+        ops.decode_attention, ((2, hq, d), torch.bfloat16), ((2, 256, hkv, d), torch.bfloat16),
+        ((2, 256, hkv, d), torch.bfloat16), ((2,), torch.int32))
+    assert _kernel_work(got, "decode_attention") == _figure(t)
+    # every slot counted; the run's own bound reads only up to each pos
+    assert t["accounted_bound_ms"] >= t["bound_ms"]
