@@ -107,7 +107,28 @@ What it does, one JSON line per phase:
                  K3); granite-moe-1b-a400m's train_4k step through
                  make_sharded_moe, 4 x 1,024 tokens, against one plain
                  step (loss within rtol 2e-4); each timed, median of 3;
-                 within 300 s
+                 within 300 s.  Then K4 on a decode_32k cache cut into 16
+                 slices of 2,048 slots (lm_cache_pspecs' time split on a
+                 16-way model axis), each slice's launch with its
+                 log-sum-exp at its local length, merged in slice order,
+                 against one launch over the whole cache (pos = T and
+                 uniform; every lse against the plain version's);
+                 qwen2-0.5b's decode_32k cell at published size (B = 128,
+                 32,768 slots, 51.5 GB of cache) on DTensors against the
+                 plain decode step on the same storage (the plain step
+                 first, the rows it wrote saved and put back), 3 steps, the
+                 same bits, exactly 24 K4 launches a step on each path, then
+                 timed; granite-moe-1b-a400m's prefill_32k cell (its MoE
+                 layers through make_sharded_moe), 2 sequences of 32,768
+                 tokens at 2 of its 24 layers, against the plain prefill
+                 (logits and caches the same bits, both under torch's
+                 deterministic algorithms: the MoE layers' index_add_ sums
+                 in no fixed order on the card otherwise); gcn-cora's ogb_products cell (the graph made on
+                 the card and padded to multiples of 512) and molecule cell
+                 against the same step on plain tensors (loss, parameters,
+                 AdamW state: the same bits or the gradient gate's TOL), the
+                 padded step's loss against the unpadded one's; within 300 s
+                 more
   roofline       the cells phase's three steps counted on fake tensors in a
                  fake world of one rank (roofline/analysis.py: per-rank
                  FLOPs by unit, bytes, collectives, each hand-written
@@ -120,7 +141,8 @@ What it does, one JSON line per phase:
                  phase fails: a step cannot beat its floor), MFU, the dry
                  run's peak beside max_memory_allocated; each kernel the
                  step launched must be in the count as often and with its
-                 work(); within 300 s
+                 work(); then the decode_32k cell's step the same way (K4
+                 at every slot); within 300 s
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -186,8 +208,9 @@ no result line:
                shapes, B = 1,024 and train_batch's 65,536
   k4_timings   K4 timed at its four shapes (decode_32k at pos = T and with
                pos uniform, B = 1 at 32,768 slots, lm_generate's step), main
-               kernel and combine timed apart by torch.profiler and other
-               run lengths than the plan's timed beside it
+               kernel and combine timed apart by torch.profiler, the launch
+               that also writes the log-sum-exp timed beside the one that
+               does not, and other run lengths than the plan's
 
 A copy of this script run from another tree's root times that tree's K2,
 K4 or backward kernels the same way (how a change is held against its
@@ -198,6 +221,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import json
 import os
 import shutil
@@ -348,6 +372,15 @@ CELLS_LM_BATCH, CELLS_LM_SEQ = 4, 1024          # cut from train_4k's 256 x 4,09
 CELLS_TIMED = 3                                 # steps timed a path (median)
 CELLS_LM_RTOL = 2e-4                            # tests/test_distributed.py's own
 CELLS_SECONDS = 300.0
+CELLS_DECODE = ("qwen2-0.5b", "decode_32k")     # published size and batch, not cut
+CELLS_DECODE_STEPS = 3                          # steps held DTensor against plain
+CELLS_PREFILL = ("granite-moe-1b-a400m", "prefill_32k")
+CELLS_PREFILL_BATCH = 2                         # cut from prefill_32k's 32 sequences
+CELLS_PREFILL_LAYERS = 2                        # cut from 24: flash_sdpa's eager chunk loop
+CELLS_GNN = ("ogb_products", "molecule")
+K4_SLICES = 16                                  # a decode_32k cache over a 16-way model axis
+K4_LSE_RTOL = 1e-4                              # float32 log-sum-exps against the plain ones
+CELLS_SERVING_SECONDS = 300.0                   # the phase's K4 split, LM and GNN cells
 REMOTE_MODEL = "mlp:128:256:2"
 REMOTE_NODES = 2
 REMOTE_MAX_BUCKET = 64
@@ -987,6 +1020,10 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
         q, k, v = sets[i % n_sets]
         return library_decode(q, k, v, pos, mask)
 
+    def kernel_lse(i):
+        q, k, v = sets[i % n_sets]
+        return ops.decode_attention(q, k, v, pos, return_lse=True)
+
     err = decode_compare(f"decode_attention timing shape B={b} T={t} pos={pos_kind}",
                          kernel(0), plain(0))
     lib_err = float((library(0).float() - plain(0).float()).abs().max())
@@ -1011,6 +1048,10 @@ def time_decode_attention(seed: int, gen, dev, name: str, b: int, t: int, pos_ki
     }
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["achieved_tb_per_s"] = bytes_moved / res["kernel_ms"] / 1e9
+    if "return_lse" in inspect.signature(ops.decode_attention).parameters:
+        # the same launch writing each query head's log-sum-exp too (B·Hq floats)
+        res["kernel_lse_ms"] = device_ms(kernel_lse, n_iter=max(20, n_sets))
+        res["lse_over_no_lse"] = res["kernel_lse_ms"] / res["kernel_ms"]
     if other_runs and res["run_slots"] is not None:
         outs = [torch.empty_like(s[0]) for s in sets]
         cuts = {run: da_kernel.cut(b, hkv, t, d, es, run)
@@ -3501,12 +3542,300 @@ def cells_train_lm(seed: int, dev, gen, mesh, launches: dict) -> dict:
     return out
 
 
+def check_k4_time_split(seed: int, gen, dev) -> dict:
+    """K4 as a decode cell runs it on a cache split over time: a decode_32k
+    cache (qwen2-0.5b's heads, bf16) cut into K4_SLICES slices, each slice's
+    launch with its log-sum-exp at the local length clamp(pos - r·T_r, 0,
+    T_r), merged in slice order (ref.merge_decode_attention), against one
+    launch over the whole cache (``decode_compare``: bf16 3e-2); each
+    slice's and the whole launch's lse against ref.decode_attention's
+    (K4_LSE_RTOL).  pos = T and uniform in [1, T].  Launches made here are
+    comparisons and count toward no path."""
+    hq, hkv, d = k4_heads()
+    shape = configs.LM_SHAPES["decode_32k"]
+    b, t = shape.global_batch, shape.seq_len
+    per = t // K4_SLICES
+    q, k, v = decode_inputs(gen, dev, b, hq, hkv, d, t)
+    rng = np.random.default_rng(seed)
+    out = {"shape": [b, hq, hkv, d, t], "slices": K4_SLICES, "slots_a_slice": per,
+           "dtype": "bfloat16", "tol": DECODE_TOL[torch.bfloat16], "lse_rtol": K4_LSE_RTOL}
+
+    def lse_err(name, got, want):
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            fail(f"{name}: -inf where the plain lse is not, or not where it is")
+        fin = torch.isfinite(want)
+        err = (got[fin].double() - want[fin].double()).abs()
+        if not bool((err <= K4_LSE_RTOL * (1 + want[fin].double().abs())).all()):
+            fail(f"{name}: lse max abs err {float(err.max()):.3e} past rtol {K4_LSE_RTOL}")
+        return float(err.max()) if err.numel() else 0.0
+
+    for kind in (t, "uniform"):
+        pos = decode_positions(rng, b, t, kind, dev)
+        whole, whole_lse = ops.decode_attention(q, k, v, pos, return_lse=True)
+        if not torch.equal(whole, ops.decode_attention(q, k, v, pos)):
+            fail("k4 time split: the launch with lse gave other bits than the one without")
+        _, want_lse = ref.decode_attention(q, k, v, pos, return_lse=True)
+        errs = {"whole_lse": lse_err(f"k4 lse pos={kind}", whole_lse, want_lse)}
+        outs, lses, slice_err = [], [], 0.0
+        for r in range(K4_SLICES):
+            ks, vs = (x[:, r * per:(r + 1) * per].contiguous() for x in (k, v))
+            local = (pos - r * per).clamp(0, per).to(torch.int32)
+            o, lse = ops.decode_attention(q, ks, vs, local, return_lse=True)
+            _, w = ref.decode_attention(q, ks, vs, local, return_lse=True)
+            slice_err = max(slice_err, lse_err(f"k4 slice {r} lse pos={kind}", lse, w))
+            outs.append(o)
+            lses.append(lse)
+            del ks, vs
+        merged, merged_lse = ref.merge_decode_attention(torch.stack(outs), torch.stack(lses))
+        errs["slice_lse"] = slice_err
+        errs["merged_vs_one_launch"] = decode_compare(f"k4 merged slices pos={kind}", merged,
+                                                      whole)
+        errs["merged_lse_vs_one_launch"] = lse_err(f"k4 merged lse pos={kind}", merged_lse,
+                                                   whole_lse)
+        out["pos_t" if kind == t else "pos_uniform"] = errs
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_at(caches: list[dict], slot: torch.Tensor) -> list[tuple]:
+    """Each layer's (k, v) rows at each sequence's ``slot``, copied."""
+    bidx = torch.arange(slot.shape[0], device=slot.device)
+    return [(c["k"][bidx, slot].clone(), c["v"][bidx, slot].clone()) for c in caches]
+
+
+def cells_decode(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """qwen2-0.5b's decode_32k cell at its published size: B = 128 against
+    caches of 32,768 slots (51.5 GB) filled from the seed, pos near T.  Two
+    copies do not fit the card, so both paths run on one storage (a
+    one-rank DTensor keeps its tensor whole and shares it, ``Cell.place``):
+    each step runs the plain ``lm.decode_step`` first, saves the rows it
+    wrote and puts the old ones back, then the cell's step on DTensors;
+    logits, the rows written and pos the same bits; exactly 24 K4 launches
+    a step on each path.  Then CELLS_TIMED steps of each path timed."""
+    arch, shape_name = CELLS_DECODE
+    cfg = configs.get(arch).config
+    shape = configs.LM_SHAPES[shape_name]
+    b, t = shape.global_batch, shape.seq_len
+    cell = steps_lib.build_cell(arch, shape_name, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(gen, cfg, device=dev)
+    caches = lm.init_caches(cfg, b, t, device=dev)
+    n_steps = CELLS_DECODE_STEPS + 2 * CELLS_TIMED
+    start = t - n_steps - 1
+    for c in caches:
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        c["pos"].fill_(start)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, b, n_steps)
+                            ["tokens"]).to(dev)
+    p_d, _, c_d = cell.place(params, None, caches)
+    if any(cd["k"].to_local().data_ptr() != c["k"].data_ptr() for cd, c in zip(c_d, caches)):
+        fail("cells decode: the DTensor caches are a copy, not the plain caches' storage")
+    per_step = {"decode_attention": cfg.n_layers}
+    bits = []
+    for i in range(CELLS_DECODE_STEPS):
+        slot = caches[0]["pos"].long()
+        old = rows_at(caches, slot)
+        ops.reset_launch_counts()
+        want, after = lm.decode_step(params, cfg, toks[:, i], caches)
+        tally(launches, f"{arch} decode plain step {i}", per_step)
+        new = rows_at(caches, slot)
+        bidx = torch.arange(b, device=dev)
+        for c, (k_, v_) in zip(caches, old):
+            c["k"][bidx, slot] = k_
+            c["v"][bidx, slot] = v_
+        ops.reset_launch_counts()
+        got, c_d = cell.fn(p_d, cell.place(None, toks[:, i])[1], c_d)
+        tally(launches, f"{arch} decode DTensor step {i}", per_step)
+        caches = after
+        if want.shape != (b, cfg.vocab) or not bool(torch.isfinite(want.float()).all()):
+            fail(f"cells decode: logits of shape {tuple(want.shape)} or non-finite")
+        bits.append({
+            "logits": torch.equal(got.to_local(), want),
+            "rows": all(torch.equal(a, w) for x, y in zip(rows_at(caches, slot), new)
+                        for a, w in zip(x, y)),
+            "pos": all(torch.equal(cd["pos"].to_local(), c["pos"])
+                       for cd, c in zip(c_d, caches))})
+        if not all(bits[-1].values()):
+            err = float((got.to_local().float() - want.float()).abs().max())
+            fail(f"cells decode step {i}: DTensor against plain {bits[-1]} (logits max abs "
+                 f"err {err:.3e})")
+    out = {"arch": arch, "shape": shape_name, "batch": b, "cache_slots": t,
+           "pos_start": start, "mesh": list(mesh.shape),
+           "cache_bytes": sum(c["k"].numel() * c["k"].element_size() * 2 for c in caches),
+           "steps_checked": CELLS_DECODE_STEPS, "same_bits": bits,
+           "launches_a_step": per_step, "reduced": "none (published size and batch)"}
+    k = CELLS_DECODE_STEPS
+    ops.reset_launch_counts()
+    ms_p, _ = timed_calls(lambda: lm.decode_step(params, cfg, toks[:, k], caches), CELLS_TIMED)
+    tally(launches, f"{arch} decode plain timed steps",
+          {"decode_attention": cfg.n_layers * CELLS_TIMED})
+    token_d = cell.place(None, toks[:, k])[1]
+    ops.reset_launch_counts()
+    ms_d, _ = timed_calls(lambda: cell.fn(p_d, token_d, c_d), CELLS_TIMED)
+    tally(launches, f"{arch} decode DTensor timed steps",
+          {"decode_attention": cfg.n_layers * CELLS_TIMED})
+    out["step_ms"] = {"dtensor": ms_d, "plain": ms_p}
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, caches, c_d, p_d, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_prefill(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """granite-moe-1b-a400m's prefill_32k cell at published width,
+    CELLS_PREFILL_LAYERS layers (cut from 24: the eager chunk loop of
+    ``flash_sdpa`` runs 8,192 chunk pairs a layer at 32,768 tokens, 4.6 s a
+    layer on the host), CELLS_PREFILL_BATCH sequences of 32,768 tokens (cut
+    from 32): the
+    cell's step on DTensors (the MoE layers through ``make_sharded_moe``
+    by the ``moe_fn`` hook) against ``lm.prefill`` on plain tensors
+    (``apply_moe``), the logits and every cache leaf the same bits (or the
+    gradient gate's TOL, named).  Both run under torch's deterministic
+    algorithms: the MoE layers add each token's experts with ``index_add_``,
+    whose CUDA atomics take no fixed order, and a last bit flipped there
+    moves a later layer's top-k choice near a tie, which moved the logits
+    of the two last tokens by 0.6 to 10 % of their norm between runs (my
+    chip runs).  No kernel runs (K4 serves decoding only)."""
+    arch, shape_name = CELLS_PREFILL
+    cfg = dataclasses.replace(configs.get(arch).config, n_layers=CELLS_PREFILL_LAYERS)
+    s = configs.LM_SHAPES[shape_name].seq_len
+    cell = steps_lib.build_cell(arch, shape_name, mesh, layers_override=CELLS_PREFILL_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(gen, cfg, device=dev)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(seed), cfg, CELLS_PREFILL_BATCH,
+                                         s)["tokens"]).to(dev)
+    args = cell.place(params, toks)
+    ops.reset_launch_counts()
+    with deterministic():
+        ms_d, (got,) = timed_calls(lambda: cell.fn(*args), 1)
+        with torch.no_grad():
+            ms_p, (want,) = timed_calls(lambda: lm.prefill(params, cfg, toks, s), 1)
+    tally(launches, f"{arch} prefill", {})
+    if want[0].shape != (CELLS_PREFILL_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(want[0].float()).all()):
+        fail(f"cells prefill: logits of shape {tuple(want[0].shape)} or non-finite")
+    out = {"arch": arch, "shape": shape_name, "batch": [CELLS_PREFILL_BATCH, s],
+           "reduced": f"batch {CELLS_PREFILL_BATCH} x {s} tokens, cut from "
+                      f"{configs.LM_SHAPES[shape_name].global_batch} x {s}; "
+                      f"{CELLS_PREFILL_LAYERS} layers, cut from "
+                      f"{configs.get(arch).config.n_layers}",
+           "mesh": list(mesh.shape), "step_ms": {"dtensor": ms_d, "plain": ms_p},
+           "deterministic_algorithms": True,
+           "logits": same_leaves(f"cells {arch} prefill logits", {"l": got[0].to_local()},
+                                 {"l": want[0]}),
+           "caches": same_leaves(f"cells {arch} prefill caches", local_leaves(got[1]),
+                                 local_leaves(want[1])),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del params, args, got, want, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms within (``index_add_`` sorts in
+    place of adding with atomics; a cuBLAS call only warns), the setting of
+    before restored after."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def device_graph(gen, dev, n_nodes: int, n_edges: int, d_feat: int, n_classes: int) -> dict:
+    """A random graph made on the card from ``gen`` (``syn.random_graph``'s
+    numpy on the host takes tens of seconds at ogbn-products' 61.9 M edges):
+    ``random_graph``'s leaves and dtypes."""
+    return {"x": torch.randn((n_nodes, d_feat), generator=gen, device=dev),
+            "edge_index": torch.randint(0, n_nodes, (2, n_edges), generator=gen, device=dev,
+                                        dtype=torch.int32),
+            "labels": torch.randint(0, n_classes, (n_nodes,), generator=gen, device=dev,
+                                    dtype=torch.int32),
+            "train_mask": torch.rand((n_nodes,), generator=gen, device=dev) < 0.6}
+
+
+def cells_gnn(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """gcn-cora's ogb_products cell (published size: the graph made on the
+    card, padded to multiples of 512 nodes and edges by ``steps.pad_graph``)
+    and molecule cell: one step of the cell on DTensors against the same
+    step on plain tensors (loss, parameters, AdamW state: the same bits, or
+    the gradient gate's TOL where a sum runs in another order); the
+    ogb_products plain step on the padded graph against the unpadded
+    graph's: the loss within TOL, and AdamW's state (its first moment is
+    the gradient) within the gradient gate, so padding is inert.  No kernel
+    runs."""
+    out = {}
+    rng = np.random.default_rng(seed)
+    for shape_name in CELLS_GNN:
+        shape = configs.GNN_SHAPES[shape_name]
+        cell = steps_lib.build_cell("gcn-cora", shape_name, mesh)
+        cfg = gcn_cora.config_for_shape(shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = gnn.init(gen, cfg, device=dev)
+        if shape.kind == "full":
+            graph = device_graph(gen, dev, shape.n_nodes, shape.n_edges, cfg.d_feat,
+                                 cfg.n_classes)
+            batch = steps_lib.pad_graph(graph, steps_lib._pad_up(shape.n_nodes),
+                                        steps_lib._pad_up(shape.n_edges))
+        else:
+            graph = None
+            batch = to_device(syn.molecule_batch(rng, shape.batch, shape.nodes_per_graph,
+                                                 shape.edges_per_graph, cfg.d_feat,
+                                                 cfg.n_classes), dev)
+        state = cell.init_state(params)
+        sharded = cell.place(clone_tree(params), clone_tree(state), batch)
+        plain = (clone_tree(params), clone_tree(state), batch)
+        ops.reset_launch_counts()
+        ms_d, (res_d,) = timed_calls(lambda: cell.fn(*sharded), 1)
+        ms_p, (res_p,) = timed_calls(lambda: cell.fn(*plain), 1)
+        tally(launches, f"gcn-cora {shape_name}", {})
+        loss_d, loss_p = local_leaves({"l": res_d[2]})["['l']"], res_p[2]
+        if not torch.isfinite(loss_p) or not torch.equal(loss_d, loss_p):
+            err = abs(float(loss_d) - float(loss_p))
+            if not err <= TOL[torch.float32] * abs(float(loss_p)):
+                fail(f"cells gcn {shape_name}: sharded loss {float(loss_d)} vs plain "
+                     f"{float(loss_p)}")
+        line = {"batch_shapes": {k: list(v.shape) for k, v in batch.items()},
+                "loss": float(loss_p), "loss_same_bits": bool(torch.equal(loss_d, loss_p)),
+                "params": same_leaves(f"cells gcn {shape_name} params",
+                                      local_leaves(sharded[0]), local_leaves(plain[0])),
+                "opt_state": same_leaves(f"cells gcn {shape_name} AdamW state",
+                                         local_leaves(sharded[1]), local_leaves(plain[1])),
+                "first_step_ms": {"dtensor": ms_d, "plain": ms_p}}
+        if graph is not None:
+            unpadded = (clone_tree(params), clone_tree(state), graph)
+            _, _, loss_u = cell.fn(*unpadded)
+            if abs(float(loss_u) - float(loss_p)) > TOL[torch.float32] * abs(float(loss_u)):
+                fail(f"cells gcn {shape_name}: padded loss {float(loss_p)} vs unpadded "
+                     f"{float(loss_u)}")
+            line["padded_vs_unpadded"] = {
+                "loss_unpadded": float(loss_u),
+                "opt_state": same_leaves(f"cells gcn {shape_name} padded AdamW state",
+                                         local_leaves(plain[1]), local_leaves(unpadded[1]))}
+            line["padded_to"] = [steps_lib._pad_up(shape.n_nodes),
+                                 steps_lib._pad_up(shape.n_edges)]
+        line["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[shape_name] = line
+        del params, state, batch, graph, sharded, plain, cell
+        torch.cuda.empty_cache()
+    return out
+
+
 def cells_phase(seed: int, dev, gen) -> dict:
     """The cell builder (launch/steps.py) on the card: an NCCL world of one
     rank, a (1, 1) (data, model) mesh; RMC2's train_batch step, xDeepFM's
     serve_p99 step and granite-moe's train_4k step on DTensors, each held
-    against the same step on plain tensors (see each part).  Frees all it
-    holds; fails past CELLS_SECONDS."""
+    against the same step on plain tensors (see each part), within
+    CELLS_SECONDS; then K4 on a time-split cache (``check_k4_time_split``),
+    the decode_32k, prefill_32k and GNN cells, within CELLS_SERVING_SECONDS
+    more.  Frees all it holds."""
     t0 = time.monotonic()
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
@@ -3518,11 +3847,22 @@ def cells_phase(seed: int, dev, gen) -> dict:
                         ("xdeepfm_serve_p99", cells_serve_xdeepfm),
                         ("granite_moe_train_4k", cells_train_lm)):
             line[key] = fn(seed, dev, gen, mesh, line["launches"])
+        line["train_serve_seconds"] = time.monotonic() - t0
+        if line["train_serve_seconds"] > CELLS_SECONDS:
+            fail(f"cells: took {line['train_serve_seconds']:.1f} s, past {CELLS_SECONDS} s")
+        t1 = time.monotonic()
+        line["k4_time_split"] = check_k4_time_split(seed, gen, dev)
+        for key, fn in (("qwen2_decode_32k", cells_decode),
+                        ("granite_moe_prefill_32k", cells_prefill),
+                        ("gcn_cora", cells_gnn)):
+            line[key] = fn(seed, dev, gen, mesh, line["launches"])
+        line["serving_gnn_seconds"] = time.monotonic() - t1
+        if line["serving_gnn_seconds"] > CELLS_SERVING_SECONDS:
+            fail(f"cells: the K4 split, LM and GNN cells took "
+                 f"{line['serving_gnn_seconds']:.1f} s, past {CELLS_SERVING_SECONDS} s")
     finally:
         dist.destroy_process_group()
     line["seconds"] = time.monotonic() - t0
-    if line["seconds"] > CELLS_SECONDS:
-        fail(f"cells: took {line['seconds']:.1f} s, past {CELLS_SECONDS} s")
     return line
 
 
@@ -3631,10 +3971,11 @@ def cell_roofline(cell, specs: tuple | None, steps_ms: dict[str, float], launche
 
 
 def roofline_phase(cells_line: dict) -> dict:
-    """The cells phase's three steps counted (``roofline.analysis``) in a
-    fake world of one rank on a (1, 1) mesh of the card's device, at the
-    sizes the phase ran, and held to the steps it measured
-    (``roofline_gate``); fails past ROOFLINE_SECONDS."""
+    """The cells phase's three training and serving steps and its
+    decode_32k step counted (``roofline.analysis``) in a fake world of one
+    rank on a (1, 1) mesh of the card's device, at the sizes the phase ran,
+    and held to the steps it measured (``roofline_gate``); fails past
+    ROOFLINE_SECONDS."""
     t0 = time.monotonic()
     rmc2, xdfm, moe = (cells_line[k] for k in ("rmc2_train_batch", "xdeepfm_serve_p99",
                                                 "granite_moe_train_4k"))
@@ -3667,6 +4008,18 @@ def roofline_phase(cells_line: dict) -> dict:
             cell, (cell.args[0], cell.args[1], syn.lm_specs(cfg, CELLS_LM_BATCH, CELLS_LM_SEQ)),
             {"dtensor": moe["step_ms"]["sharded"], "plain": moe["step_ms"]["unsharded"]},
             {}, {}, moe["max_memory_allocated_gb"])
+        dec = cells_line["qwen2_decode_32k"]
+        arch, shape = CELLS_DECODE
+        cfg = configs.get(arch).config
+        # K4 at every slot of each layer's cache: a decode_32k cache is full
+        k4 = da_kernel.work(dec["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            dec["cache_slots"], 2)
+        expected = {"decode_attention": (cfg.n_layers, ({u: f * cfg.n_layers
+                                                         for u, f in k4[0].items()},
+                                                        k4[1] * cfg.n_layers))}
+        line["qwen2_decode_32k"] = cell_roofline(
+            steps_lib.build_cell(arch, shape, mesh), None, dec["step_ms"],
+            dec["launches_a_step"], expected, dec["max_memory_allocated_gb"])
     line["seconds"] = time.monotonic() - t0
     if line["seconds"] > ROOFLINE_SECONDS:
         fail(f"roofline: took {line['seconds']:.1f} s, past {ROOFLINE_SECONDS} s")
@@ -3930,7 +4283,8 @@ def main() -> None:
          "bound_ms": da_main["bound_ms"], "bound_by": da_main["bound_by"],
          "library_ms": da_main["library_ms"], "share_of_bound": da_main["share_of_bound"],
          "main_ms": da_main["main_ms"], "combine_ms": da_main["combine_ms"],
-         "run_slots": da_main["run_slots"],
+         "run_slots": da_main["run_slots"], "lse_ms": da_main["kernel_lse_ms"],
+         "time_split": celled["k4_time_split"],
          "design": "a block per (sequence, KV head, run of run_slots slots) with all G query "
                    "heads, the run length planned on the host for full caches and the runs "
                    "counted from pos on the card; two-stage 16-byte cp.async tiles; runs "
@@ -3947,7 +4301,7 @@ def main() -> None:
              "main_ms": t["main_ms"], "combine_ms": t["combine_ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
              "library_ms": t["library_ms"], "share_of_bound": t["share_of_bound"],
-             "run_slots": t["run_slots"],
+             "run_slots": t["run_slots"], "lse_ms": t["kernel_lse_ms"],
              "shape": f"q ({t['batch']}, {qwen.n_heads}, {qwen.hd}), k/v ({t['batch']}, "
                       f"{t['slots']}, {qwen.n_kv_heads}, {qwen.hd}) bfloat16, pos = {t['pos']}"}
             for t in da_times[1:]},

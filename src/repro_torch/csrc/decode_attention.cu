@@ -6,7 +6,11 @@
 //     q (B, Hq, D), k/v (B, T, Hkv, D), pos (B,) int32 -> out (B, Hq, D),
 //     query head h*G + g reads KV head h (G = Hq / Hkv);
 //     s[t] = q . k[t] / sqrt(D) for t < pos[b], -1e30 for the other slots,
-//     out = softmax(s) . v.
+//     out = softmax(s) . v;
+// and, where the caller asks (a non-null lse), each query head's
+// log-sum-exp of s over the valid slots, lse = m + log(l), float32 (B, Hq):
+// -inf where pos <= 0 leaves no valid slot.  A cache cut over time is then
+// merged from its slices' (out, lse) (kernels/ref.py::merge_decode_attention).
 // float32 and bfloat16 storage (q, k, v and out of one type); every
 // product, sum and exponential is float32; the result is stored once.
 //
@@ -142,8 +146,9 @@ __device__ __forceinline__ int slot_count(int p, int Tlen) { return p <= 0 ? Tle
 
 // Block (b, h, z): KV head h of sequence b, slots [z*run_slots,
 // (z+1)*run_slots) below its slot count n.  A sequence of one run writes
-// out.  Otherwise the unnormalised acc (G, D) goes to part_acc[b, h, z] and
-// (m, l) of each head to part_ml[b, h, z], for z < ceil(n / run_slots).
+// out (and lse, when given).  Otherwise the unnormalised acc (G, D) goes
+// to part_acc[b, h, z] and (m, l) of each head to part_ml[b, h, z], for
+// z < ceil(n / run_slots).
 // Two blocks an SM, as the shared memory of the main path's instantiation
 // (bfloat16, D = 64, G = 7: 94 KB) allows: the hint frees the compiler to
 // spend registers on the tile loop (136 instead of 94 there, and faster).
@@ -151,9 +156,9 @@ template <typename T, int D, int G>
 __global__ void __launch_bounds__(Cfg<T, D, G>::THREADS, 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
-                        T* __restrict__ out, float* __restrict__ part_acc,
-                        float* __restrict__ part_ml, int Tlen, int Hkv, int run_slots,
-                        int runs) {
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part_acc, float* __restrict__ part_ml, int Tlen,
+                        int Hkv, int run_slots, int runs) {
     using C = Cfg<T, D, G>;
     // the combine's blocks may be scheduled once every block here has started
     launch_dependents();
@@ -351,16 +356,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             part_acc[(bh * runs + z) * G * D + i] = a;
         }
     }
-    if (!direct && tid == 0) {
-        float* ml = part_ml + (bh * runs + z) * G * 2;
+    if (tid == 0) {
+        if (!direct) {
+            float* ml = part_ml + (bh * runs + z) * G * 2;
 #pragma unroll
-        for (int g = 0; g < G; ++g) { ml[2 * g] = m[g]; ml[2 * g + 1] = l[g]; }
+            for (int g = 0; g < G; ++g) { ml[2 * g] = m[g]; ml[2 * g + 1] = l[g]; }
+        } else if (lse != nullptr) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+                lse[bh * G + g] = all_masked ? -INFINITY : m[g] + logf(l[g]);
+            }
+        }
     }
 }
 
 // out[b, h*G + g, c0:c0+cols] = sum_z w_z acc_z[g, c0:c0+cols] / sum_z w_z l_z[g],
 // w_z = exp(m_z[g] - max_z m_z[g]), over the runs z < ceil(n / run_slots)
-// of sequences of more than one run.  Block (b*Hkv + h, g, c0 / cols);
+// of sequences of more than one run; lse[b, h*G + g] = max_z m_z[g] + log of
+// the denominator (-inf where pos <= 0), written by thread 0 of the first
+// column block when lse is given.  Block (b*Hkv + h, g, c0 / cols);
 // threads over runs for the maximum and the denominator, over (run subset,
 // 4 columns) for the numerator.  The plan narrows cols where there are many
 // runs, so that a thread has at most kPrefetch: their columns are loaded
@@ -370,8 +384,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_attention_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                         const int* __restrict__ pos, T* __restrict__ out, int Tlen, int Hkv,
-                         int G, int D, int run_slots, int runs, int cols) {
+                         const int* __restrict__ pos, T* __restrict__ out,
+                         float* __restrict__ lse, int Tlen, int Hkv, int G, int D,
+                         int run_slots, int runs, int cols) {
     constexpr int kWarps = kCombineThreads / 32;
     constexpr int kPrefetch = 4;
     __shared__ float wred[kWarps];
@@ -381,7 +396,8 @@ decode_attention_combine(const float* __restrict__ part_acc, const float* __rest
     // pos was written before the main kernel started, so it may be read
     // before the wait; the wait comes before any exit, so that this grid
     // ends after the main kernel
-    const int n = slot_count(pos[bh / Hkv], Tlen);
+    const int p = pos[bh / Hkv];
+    const int n = slot_count(p, Tlen);
     const int nr = (n + run_slots - 1) / run_slots;
     wait_prerequisites();
     if (nr <= 1) return;                                 // the main kernel wrote out
@@ -451,6 +467,9 @@ decode_attention_combine(const float* __restrict__ part_acc, const float* __rest
         for (int j = 0; j < subsets; ++j) num += red[j * cols + i];
         store(o + i, num / den);
     }
+    if (lse != nullptr && blockIdx.z == 0 && tid == 0) {
+        lse[bh * G + g] = p <= 0 ? -INFINITY : mx + logf(den);
+    }
 }
 
 // launches kernel<<<grid, block, smem, stream>>>(args...) as a programmatic
@@ -479,7 +498,7 @@ struct Split {
 
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-           float* part_acc, float* part_ml, int B, int Tlen, int Hkv, Split sp,
+           float* lse, float* part_acc, float* part_ml, int B, int Tlen, int Hkv, Split sp,
            cudaStream_t stream) {
     using C = Cfg<T, D, G>;
     auto kernel = decode_attention_kernel<T, D, G>;
@@ -494,7 +513,7 @@ int launch(const void* q, const void* k, const void* v, const int* pos, void* ou
     }
     kernel<<<dim3((unsigned)B, (unsigned)Hkv, (unsigned)sp.runs), C::THREADS, C::SMEM, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-        static_cast<T*>(out), part_acc, part_ml, Tlen, Hkv, sp.run_slots, sp.runs);
+        static_cast<T*>(out), lse, part_acc, part_ml, Tlen, Hkv, sp.run_slots, sp.runs);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess || sp.runs == 1) return (int)e;
     return (int)launch_dependent(decode_attention_combine<T>,
@@ -502,34 +521,35 @@ int launch(const void* q, const void* k, const void* v, const int* pos, void* ou
                                       (unsigned)(D / sp.cols)),
                                  dim3(kCombineThreads), 0, stream,
                                  (const float*)part_acc, (const float*)part_ml, pos,
-                                 static_cast<T*>(out), Tlen, Hkv, G, D, sp.run_slots, sp.runs,
-                                 sp.cols);
+                                 static_cast<T*>(out), lse, Tlen, Hkv, G, D, sp.run_slots,
+                                 sp.runs, sp.cols);
 }
 
 template <typename T, int D>
 int launch_g(int G, const void* q, const void* k, const void* v, const int* pos, void* out,
-             float* pa, float* pm, int B, int Tlen, int Hkv, Split sp, cudaStream_t s) {
+             float* lse, float* pa, float* pm, int B, int Tlen, int Hkv, Split sp,
+             cudaStream_t s) {
     switch (G) {
-        case 1: return launch<T, D, 1>(q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 2: return launch<T, D, 2>(q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 4: return launch<T, D, 4>(q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 7: return launch<T, D, 7>(q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 8: return launch<T, D, 8>(q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
+        case 1: return launch<T, D, 1>(q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 2: return launch<T, D, 2>(q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 4: return launch<T, D, 4>(q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 7: return launch<T, D, 7>(q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 8: return launch<T, D, 8>(q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
 int launch_d(int D, int G, const void* q, const void* k, const void* v, const int* pos,
-             void* out, float* pa, float* pm, int B, int Tlen, int Hkv, Split sp,
+             void* out, float* lse, float* pa, float* pm, int B, int Tlen, int Hkv, Split sp,
              cudaStream_t s) {
     switch (D) {
-        case 8: return launch_g<T, 8>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 16: return launch_g<T, 16>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 32: return launch_g<T, 32>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 64: return launch_g<T, 64>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 96: return launch_g<T, 96>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
-        case 128: return launch_g<T, 128>(G, q, k, v, pos, out, pa, pm, B, Tlen, Hkv, sp, s);
+        case 8: return launch_g<T, 8>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 16: return launch_g<T, 16>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 32: return launch_g<T, 32>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 64: return launch_g<T, 64>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 96: return launch_g<T, 96>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
+        case 128: return launch_g<T, 128>(G, q, k, v, pos, out, lse, pa, pm, B, Tlen, Hkv, sp, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -542,9 +562,10 @@ int launch_d(int D, int G, const void* q, const void* k, const void* v, const in
 // runs = ceil(T / run_slots) > 1 (at most 65535) the combine is launched
 // too, over column blocks of cols (a multiple of 4 that divides D), and
 // needs part_acc (B*Hkv*runs*G*D floats) and part_ml (B*Hkv*runs*G*2
-// floats).  Returns cudaGetLastError() after the launches.
+// floats).  lse may be null; else it receives (B, Hq) float32 log-sum-exps.
+// Returns cudaGetLastError() after the launches.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* pos, void* out, void* part_acc,
+                                       const void* pos, void* out, void* lse, void* part_acc,
                                        void* part_ml, int B, int T, int Hkv, int G, int D,
                                        int run_slots, int cols, int dtype, void* stream) {
     if (B == 0) return 0;
@@ -558,9 +579,12 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
     const int* p = static_cast<const int*>(pos);
     float* pa = static_cast<float*>(part_acc);
     float* pm = static_cast<float*>(part_ml);
+    float* ls = static_cast<float*>(lse);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Split sp{run_slots, runs, cols};
-    if (dtype == 0) return launch_d<float>(D, G, q, k, v, p, out, pa, pm, B, T, Hkv, sp, s);
-    if (dtype == 1) return launch_d<__nv_bfloat16>(D, G, q, k, v, p, out, pa, pm, B, T, Hkv, sp, s);
+    if (dtype == 0) return launch_d<float>(D, G, q, k, v, p, out, ls, pa, pm, B, T, Hkv, sp, s);
+    if (dtype == 1) {
+        return launch_d<__nv_bfloat16>(D, G, q, k, v, p, out, ls, pa, pm, B, T, Hkv, sp, s);
+    }
     return (int)cudaErrorInvalidValue;
 }

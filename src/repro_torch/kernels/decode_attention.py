@@ -50,7 +50,7 @@ def _function():
     global _fn
     if _fn is None:
         fn = _build.load().decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -124,12 +124,16 @@ def work(b: int, hq: int, hkv: int, d: int, t: int, itemsize: int,
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-           out: torch.Tensor, split: Plan | None = None) -> None:
+           out: torch.Tensor, split: Plan | None = None, *,
+           lse: torch.Tensor | None = None) -> None:
     """q (B, Hq, D), k/v (B, T, Hkv, D), pos (B,) int32, out (B, Hq, D),
-    contiguous, 16-byte aligned, on one CUDA device.  ``split`` None takes
-    the plan's (another is for timing the plan against).  A float32
-    workspace for the runs' partial results is allocated here when a
-    sequence may have more than one run."""
+    contiguous, 16-byte aligned, on one CUDA device; ``lse`` None, or a
+    contiguous (B, Hq) float32 tensor that receives each query head's
+    log-sum-exp (written by the main kernel for a sequence of one run, by
+    the combine for one of more).  ``split`` None takes the plan's
+    (another is for timing the plan against).  A float32 workspace for the
+    runs' partial results is allocated here when a sequence may have more
+    than one run."""
     global launch_count
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -146,7 +150,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _function()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                          out.data_ptr(),
+                          out.data_ptr(), None if lse is None else lse.data_ptr(),
                           None if part_acc is None else part_acc.data_ptr(),
                           None if part_ml is None else part_ml.data_ptr(),
                           b, t, hkv, g, d, split.run_slots, split.combine_cols,

@@ -31,6 +31,10 @@ reduced.  A table split by columns looks up its columns locally and the
 pooled columns are gathered after; a table split by rows looks up the
 rows it holds (every other id reads one zero row appended to the local
 shard) and the pooled partial sums are added across the axis.
+``decode_attention`` takes DTensor KV caches: split by heads, each rank
+attends with its heads; split over time, each rank attends over its slots
+and returns its log-sum-exp, and the ranks are merged in rank order
+(``_decode_on_shards``).
 
 Fake tensors.  A fake tensor (``torch._subclasses.fake_tensor``), on
 whatever device, is the accounting's: the wrapper checks what it checks on
@@ -454,13 +458,17 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, *, return_lse: bool = False):
     """One query token per sequence against its KV cache: q (B, Hq, D),
     k/v (B, T, Hkv, D), pos (B,) → (B, Hq, D).  Query head ``h·G + g``
     (G = Hq / Hkv) reads KV head ``h``; slots ``t >= pos[b]`` are masked
     (all of them for ``pos <= 0``, which gives the mean of V).  float32
-    inside, result in q's dtype.  ``pos`` is int32 on the GPU; the kernel
-    takes D in ``HEAD_DIMS`` and G in ``GROUPS`` of ``kernels.decode_attention``."""
+    inside, result in q's dtype.  With ``return_lse`` also each query
+    head's log-sum-exp of its scaled scores over the valid slots, (B, Hq)
+    float32, ``-inf`` where ``pos <= 0`` (the same launch writes it).
+    ``pos`` is int32 on the GPU; the kernel takes D in ``HEAD_DIMS`` and G
+    in ``GROUPS`` of ``kernels.decode_attention``.  DTensor caches go
+    through ``_decode_on_shards``."""
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape or pos.ndim != 1:
         raise ValueError(f"expected q (B, Hq, D), k and v (B, T, Hkv, D), pos (B,); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, {tuple(pos.shape)}")
@@ -479,10 +487,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.device != q.device for x in (k, v, pos)):
         raise ValueError(f"q lies on {q.device}, k on {k.device}, v on {v.device}, "
                          f"pos on {pos.device}")
+    if isinstance(k, DTensor):
+        return _decode_on_shards(q, k, v, pos, return_lse)
     _no_backward_kernel("decode_attention", "K4 serves decoding only", q, k, v)
     fake = is_fake(q)
     if not q.is_cuda and not fake:
-        return ref.decode_attention(q, k, v, pos)
+        return ref.decode_attention(q, k, v, pos, return_lse=return_lse)
     if q.is_cuda:
         if pos.dtype != torch.int32:
             raise TypeError(f"pos must be int32 on the GPU, got {pos.dtype}")
@@ -491,13 +501,86 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{_da.GROUPS}, got D={d}, Hq/Hkv={hq // hkv}")
         for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos)):
             _require_contiguous(name, x)
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     if fake:
         _account("decode_attention", _da.work(b, hq, hkv, d, t, q.element_size()))
-        return torch.empty_like(q)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-    out = torch.empty_like(q)
-    if b:
-        _da.launch(q, k, v, pos, out)
-    return out
+    else:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        if b:
+            _da.launch(q, k, v, pos, out, lse=lse)
+    return (out, lse) if return_lse else out
+
+
+def cache_split(cache_placements, heads_dim: int | None) -> tuple:
+    """Per mesh axis, the placement of a tensor of a KV cache's sequences
+    (q, a new K/V row, with their heads at dim ``heads_dim``; pos, None):
+    split as the cache's batch (dim 0) and KV heads (dim 2) are, whole over
+    an axis that splits the cache's slots (dim 1)."""
+    for p in cache_placements:
+        if not (p == Replicate() or p.is_shard(0) or p.is_shard(1) or p.is_shard(2)):
+            raise ValueError(f"no decode for a cache placed {cache_placements}")
+    return tuple(Shard(0) if p.is_shard(0) else
+                 Shard(heads_dim) if p.is_shard(2) and heads_dim is not None else Replicate()
+                 for p in cache_placements)
+
+
+def first_slot(cache: DTensor) -> tuple[int | None, int]:
+    """(the mesh axis that splits a DTensor cache (B, T, ...) over its
+    slots, or None; the first slot this rank holds): rank r of m holds
+    DTensor's shard of ⌈T / m⌉ slots from r·⌈T / m⌉."""
+    axes = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    if len(axes) > 1:
+        raise ValueError(f"the cache's slots are split over more than one axis: "
+                         f"{cache.placements}")
+    if not axes:
+        return None, 0
+    mesh = cache.device_mesh
+    return axes[0], mesh.get_local_rank(axes[0]) * -(-cache.shape[1] // mesh.size(axes[0]))
+
+
+def _decode_on_shards(q: torch.Tensor, k: DTensor, v: DTensor, pos: torch.Tensor,
+                      return_lse: bool):
+    """``decode_attention`` on DTensor caches (``distributed/sharding.py::
+    lm_cache_pspecs``), each rank's kernel on its local tensors.  A mesh
+    axis that splits the cache's batch (dim 0) splits q's and pos's too;
+    one that splits its KV heads (dim 2) splits q's heads, and nothing is
+    merged.  One that splits its slots (dim 1, the time split) holds q and
+    pos whole on each of its ranks: rank r of m runs the kernel on its T_r
+    slots at the local length ``clamp(pos − r·⌈T/m⌉, 0, T_r)``, with its
+    log-sum-exp; the ranks' (out, lse) are gathered over the axis in rank
+    order and merged (``ref.merge_decode_attention``, plain tensor code,
+    float32 inside): the same bits on every run, never an all-reduce whose
+    order the backend chooses.  The output is split as q's batch and heads
+    are, replicated over the time axis."""
+    mesh = k.device_mesh
+    q_pl = cache_split(k.placements, 1)           # lse (B, Hq) is split as q (B, Hq, D)
+    pos_pl = cache_split(k.placements, None)
+    axis, lo = first_slot(k)
+    q, pos = _as_dtensor(q, k), _as_dtensor(pos, k)
+    if axis is None:
+        return local_map(lambda q_, k_, v_, n_: decode_attention(q_, k_, v_, n_,
+                                                                 return_lse=return_lse),
+                         out_placements=(list(q_pl), list(q_pl)) if return_lse else list(q_pl),
+                         in_placements=(q_pl, k.placements, v.placements, pos_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos)
+
+    def local(q_, k_, v_, n_):
+        n_ = (n_ - lo).clamp(0, k_.shape[1]).to(n_.dtype)
+        out, lse = decode_attention(q_, k_, v_, n_, return_lse=True)
+        return out[None], lse[None]
+
+    # the ranks' results stacked on a new leading dim, split over the time axis
+    stacked = tuple(Shard(0) if i == axis else p if p == Replicate() else Shard(p.dim + 1)
+                    for i, p in enumerate(q_pl))
+    outs, lses = local_map(local, out_placements=(list(stacked), list(stacked)),
+                           in_placements=(q_pl, k.placements, v.placements, pos_pl),
+                           device_mesh=mesh, redistribute_inputs=True)(q, k, v, pos)
+    whole = tuple(Replicate() if i == axis else p for i, p in enumerate(stacked))
+    out, lse = local_map(ref.merge_decode_attention, out_placements=(list(q_pl), list(q_pl)),
+                         in_placements=(whole, whole), device_mesh=mesh,
+                         redistribute_inputs=True)(outs, lses)
+    return (out, lse) if return_lse else out

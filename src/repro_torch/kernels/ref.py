@@ -116,7 +116,7 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
+                     pos: torch.Tensor, *, return_lse: bool = False):
     """Grouped decode attention against a position-masked KV cache.
 
     q (B, Hq, D); k, v (B, T, Hkv, D); pos (B,) valid length per sequence
@@ -124,7 +124,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``t >= pos[b]`` score -1e30, so ``pos <= 0`` masks every slot and the
     softmax is uniform: the result is then the mean of V over all T.
     float32 throughout (what the kernel does); the result is cast to q's
-    dtype."""
+    dtype.  With ``return_lse`` also each query head's log-sum-exp of its
+    scaled scores over the valid slots, (B, Hq) float32: ``-inf`` where
+    ``pos <= 0`` (no valid slot), so that such a slice weighs nothing in
+    ``merge_decode_attention``."""
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, hkv, hq // hkv, d)
@@ -132,5 +135,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (torch.arange(t, device=q.device)[None] < pos[:, None])[:, None, None]
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgt,bthd->bhgd", probs, v.float())
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = torch.einsum("bhgt,bthd->bhgd", probs, v.float()).reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, hq)
+    return out, torch.where((pos > 0)[:, None], lse, torch.full_like(lse, -math.inf))
+
+
+def merge_decode_attention(outs: torch.Tensor, lses: torch.Tensor):
+    """The decode attention of a cache cut over time into slices, from each
+    slice's result: ``outs`` (R, B, Hq, D) and ``lses`` (R, B, Hq), slice r
+    holding slots [r·T_r, (r+1)·T_r) at its own valid length.  With
+    ``m = max_r lse_r``: ``out = Σ_r e^{lse_r − m}·out_r / Σ_r e^{lse_r − m}``
+    and ``lse = m + log Σ_r e^{lse_r − m}``, each sum taken over r in order,
+    float32 inside; ``out`` in the outs' dtype.
+    Where no slice has a valid slot (every lse ``-inf``) the slices weigh
+    alike: the mean of equal slices' means, the mean of V, as one call
+    over the whole cache gives; lse stays ``-inf``."""
+    lses = lses.float()
+    m = lses.amax(dim=0)
+    empty = torch.isinf(m) & (m < 0)
+    num = den = None
+    for r in range(outs.shape[0]):
+        w = torch.where(empty, torch.ones_like(m), torch.exp(lses[r] - m))
+        term = w[..., None] * outs[r].float()
+        num = term if num is None else num + term
+        den = w if den is None else den + w
+    lse = torch.where(empty, m, m + torch.log(den))
+    return (num / den[..., None]).to(outs.dtype), lse

@@ -26,9 +26,7 @@ outside it cannot be sliced inside it.
 
 Artifacts: artifacts/dryrun_torch/<mesh>/<arch>__<shape>.json (the
 reference's artifacts/dryrun/ is left alone).  A cell the reference skips
-is recorded as skipped; a cell the port does not build yet
-(``steps.NotBuilt``) is recorded and counted as not built; any other
-failure fails the run (exit 1).
+is recorded as skipped; any other failure fails the run (exit 1).
 """
 from __future__ import annotations
 
@@ -47,7 +45,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch import flags
 from repro_torch.configs import get, shapes_for_family
 from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD, make_production_mesh
-from repro_torch.launch.steps import NotBuilt, SkippedCell, _walk, all_cells, build_cell
+from repro_torch.launch.steps import SkippedCell, _walk, all_cells, build_cell
 from repro_torch.roofline import analysis as roofline
 
 ART_DIR = os.environ.get("REPRO_ARTIFACTS", "artifacts")
@@ -208,8 +206,8 @@ def save_record(rec: dict, mesh_name: str) -> str:
 def run_cells(cells, mesh, mesh_name: str, *, fsdp: bool = False, smoke: bool = False,
               layers_override: int | None = None) -> dict:
     """Every cell of ``cells`` on ``mesh``: {"records": ..., "ok", "skipped",
-    "not_built", "failed": [names]}."""
-    out = {"records": {}, "ok": 0, "skipped": 0, "not_built": 0, "failed": []}
+    "failed": [names]}."""
+    out = {"records": {}, "ok": 0, "skipped": 0, "failed": []}
     for arch, shape in cells:
         try:
             rec = run_cell(arch, shape, mesh, mesh_name, fsdp=fsdp, smoke=smoke,
@@ -219,10 +217,6 @@ def run_cells(cells, mesh, mesh_name: str, *, fsdp: bool = False, smoke: bool = 
             print(f"[dryrun:{mesh_name}] SKIP {e}", flush=True)
             rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "skipped": str(e)}
             out["skipped"] += 1
-        except NotBuilt as e:
-            print(f"[dryrun:{mesh_name}] NOT BUILT {e}", flush=True)
-            rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "not_built": str(e)}
-            out["not_built"] += 1
         except Exception:
             print(f"[dryrun:{mesh_name}] FAIL {arch}×{shape}", flush=True)
             traceback.print_exc()
@@ -259,7 +253,7 @@ def main() -> None:
     cells = select_cells(args.arch, args.shape)
 
     names = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    totals = {"ok": 0, "skipped": 0, "not_built": 0, "failed": 0}
+    totals = {"ok": 0, "skipped": 0, "failed": 0}
     t0 = time.perf_counter()
     for name in names:
         mesh_name, multi = MESHES[name]
@@ -270,13 +264,13 @@ def main() -> None:
         for rec in res["records"].values():
             save_record(rec, mesh_name)
         print(f"[dryrun:{mesh_name}] ok={res['ok']} skipped={res['skipped']} "
-              f"not_built={res['not_built']} failed={len(res['failed'])} "
+              f"failed={len(res['failed'])} "
               f"({time.perf_counter() - t_mesh:.1f} s)", flush=True)
-        for k in ("ok", "skipped", "not_built"):
+        for k in ("ok", "skipped"):
             totals[k] += res[k]
         totals["failed"] += len(res["failed"])
     print(f"\n[dryrun] ok={totals['ok']} skipped={totals['skipped']} "
-          f"not_built={totals['not_built']} failed={totals['failed']} "
+          f"failed={totals['failed']} "
           f"({time.perf_counter() - t0:.1f} s)")
     if totals["failed"]:
         raise SystemExit(1)

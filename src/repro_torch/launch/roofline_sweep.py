@@ -32,7 +32,7 @@ from repro_torch.configs import get
 from repro_torch.launch.dryrun import (ART_DIR, count_cell, count_lm_layers, fake_world,
                                        select_cells)
 from repro_torch.launch.mesh import SINGLE_POD, make_production_mesh
-from repro_torch.launch.steps import NotBuilt, SkippedCell, build_cell
+from repro_torch.launch.steps import SkippedCell, build_cell
 
 
 def account_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
@@ -65,7 +65,7 @@ def main() -> None:
 
     out_dir = os.path.join(ART_DIR, "roofline_torch")
     os.makedirs(out_dir, exist_ok=True)
-    n_ok = n_skip = n_not_built = n_fail = 0
+    n_ok = n_skip = n_fail = 0
     with fake_world(math.prod(SINGLE_POD)):
         mesh = make_production_mesh(multi_pod=False, device=args.device)
         for arch, shape in cells:
@@ -82,10 +82,6 @@ def main() -> None:
                 print(f"[roofline] SKIP {e}", flush=True)
                 rec = {"arch": arch, "shape": shape, "skipped": str(e)}
                 n_skip += 1
-            except NotBuilt as e:
-                print(f"[roofline] NOT BUILT {e}", flush=True)
-                rec = {"arch": arch, "shape": shape, "not_built": str(e)}
-                n_not_built += 1
             except Exception:
                 print(f"[roofline] FAIL {arch}×{shape}", flush=True)
                 traceback.print_exc()
@@ -93,7 +89,7 @@ def main() -> None:
                 continue
             with open(path, "w") as f:
                 json.dump(rec, f, indent=1)
-    print(f"[roofline] ok={n_ok} skipped={n_skip} not_built={n_not_built} failed={n_fail}")
+    print(f"[roofline] ok={n_ok} skipped={n_skip} failed={n_fail}")
     if n_fail:
         raise SystemExit(1)
 

@@ -3,7 +3,8 @@
 ``DeviceMesh`` (the reference's ``launch/steps.py``).
 
 A *cell* is one step of one workload: ``train_step`` for a training shape,
-the serving step (bulk forward, retrieval scoring) for an inference shape.
+the serving step (bulk forward, retrieval scoring, an LM's prefill, one
+decode token against a full KV cache) for an inference shape.
 Its arguments are given as partition specs (the reference's, leaf for
 leaf: ``distributed/sharding.py``) and as the DTensor placements they
 make on the mesh.  ``Cell.place`` distributes concrete trees to those
@@ -12,13 +13,15 @@ its shards, through the hand-written kernels where the model calls them
 (``kernels/ops.py`` takes DTensors).  The same ``fn`` on plain tensors is
 the step on one device.
 
-The port builds the recommendation cells (train, serve, retrieval) and the
-LM training cells.  The LM prefill and decode cells raise ``NotBuilt``
-(a ``NotImplementedError``): a KV cache whose heads do not divide the model
-axis is split over time, and K4 returns no log-sum-exp to merge the
-ranks' softmaxes.  The GNN cells raise it too: their sums over edges split
-across ranks need a fixed-order design of their own.  Both are the next
-items of ``ROADMAP.md`` queue 1.
+The port builds every cell the reference builds: the recommendation cells
+(train, serve, retrieval), the LM cells (train, prefill, decode) and the
+GNN cells (full graph, sampled minibatch, batched small graphs).  A decode
+cell's KV cache whose heads do not divide the model axis is split over
+time; K4 returns each rank's log-sum-exp and the ranks are merged in rank
+order (``kernels/ops.py::decode_attention``).  A GNN cell's edges are
+split over the batch axes; each rank sums its own edges and the partial
+sums are added in rank order (``models/gnn.py``).  The graphs are padded
+to multiples of 512 nodes and edges (``pad_graph`` pads a batch inertly).
 
 Layouts that differ from the reference's:
 
@@ -28,7 +31,9 @@ Layouts that differ from the reference's:
 * ``optim.combined`` keeps state only for the leaves each side owns, so
   the ``combined`` optimiser's specs follow that layout
   (``_opt_pspecs``);
-* specs are tuples (``distributed/sharding.py``), ``()`` replicated.
+* specs are tuples (``distributed/sharding.py``), ``()`` replicated;
+* the minibatch GNN cell's edge indices are a list (a tuple is a leaf of
+  the port's trees).
 """
 from __future__ import annotations
 
@@ -41,25 +46,22 @@ from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import ASSIGNED_ARCHS, FULL_ATTENTION_SKIPS, get, shapes_for_family
-from repro_torch.configs.shapes import LMShape, RecShape
+from repro_torch.configs.shapes import GNNShape, LMShape, RecShape
 from repro_torch.core import costs
 from repro_torch.data import synthetic as syn
 from repro_torch.data.synthetic import Spec
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.layers import moe as moe_lib
-from repro_torch.models import lm, recsys
+from repro_torch.models import gnn, lm, recsys
 from repro_torch.train import optim
 from repro_torch.train.microbatch import accumulated_grads, value_and_grad
-
-_NEXT = "ROADMAP.md queue 1 item 2"
-
 
 @dataclasses.dataclass
 class Cell:
     arch: str
     shape: str
-    kind: str                        # train | serve | retrieval
+    kind: str                        # train | serve | retrieval | prefill | decode
     fn: Callable                     # positional-args step function
     args: tuple                      # Spec trees
     in_specs: tuple                  # per argument, its tree of partition specs
@@ -78,23 +80,25 @@ class Cell:
 
     def place(self, *trees) -> tuple:
         """Each argument's tensors as DTensors at ``in_shardings`` (the
-        same values on every rank go in; each rank keeps its shards; None
-        stays None).  A tensor a one-rank mesh keeps whole may share its
-        storage with the DTensor made of it: pass a copy when the original
-        must stay."""
-        return tuple(None if tree is None else
-                     _walk(lambda _, t, pl: distribute_tensor(t, self.mesh, list(pl)), tree, sh)
+        same values on every rank go in, so each rank cuts its own shards
+        and nothing is sent; None stays None).  On a one-rank mesh every
+        DTensor shares its tensor's storage (two copies of a decode_32k
+        cache would not fit a card): pass a copy when the original must
+        stay."""
+        return tuple(None if tree is None else _walk(lambda _, t, pl: _place(t, self.mesh, pl),
+                                                     tree, sh)
                      for tree, sh in zip(trees, self.in_shardings))
+
+
+def _place(t: torch.Tensor, mesh: DeviceMesh, placements) -> DTensor:
+    if mesh.size() == 1:
+        return DTensor.from_local(t.detach(), mesh, list(placements),
+                                  run_check=False).requires_grad_(t.requires_grad)
+    return distribute_tensor(t, mesh, list(placements), src_data_rank=None)
 
 
 class SkippedCell(Exception):
     pass
-
-
-class NotBuilt(NotImplementedError):
-    """A cell the port does not build yet (the LM prefill and decode cells,
-    the GNN cells): ``launch/dryrun.py`` counts these apart from skipped and
-    failed cells."""
 
 
 # ------------------------------------------------------------------ trees
@@ -181,11 +185,14 @@ def _replicated(x):
 
 
 def _train_step(loss_fn, opt: optim.Optimizer, n_micro: int = 1):
-    """``train_step(params, opt_state, batch) → (params, opt_state, loss)``:
-    gradients (accumulated over ``n_micro`` microbatches), reduced to the
-    parameters' placements, then the optimiser's in-place update; the loss
-    replicated.  Constants the model makes meet DTensors as replicated."""
-    def train_step(params, opt_state, batch):
+    """``train_step(params, opt_state, *batch) → (params, opt_state, loss)``:
+    gradients of ``loss_fn(params, batch)`` (accumulated over ``n_micro``
+    microbatches), reduced to the parameters' placements, then the
+    optimiser's in-place update; the loss replicated.  A batch of one
+    argument is that argument, of several their tuple.  Constants the model
+    makes meet DTensors as replicated."""
+    def train_step(params, opt_state, *batch):
+        batch = batch[0] if len(batch) == 1 else batch
         with implicit_replication():
             if n_micro > 1:
                 loss, grads = accumulated_grads(loss_fn, params, batch, n_micro)
@@ -197,9 +204,11 @@ def _train_step(loss_fn, opt: optim.Optimizer, n_micro: int = 1):
 
 
 def _serving(fn):
-    def step(params, batch):
-        with implicit_replication():
-            return fn(params, batch)
+    """The serving step ``fn(*args)``: no graph, constants the model makes
+    meet DTensors as replicated."""
+    def step(*args):
+        with torch.no_grad(), implicit_replication():
+            return fn(*args)
     return step
 
 
@@ -217,11 +226,6 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
         raise SkippedCell(
             f"{arch}×{shape.name}: pure full-attention arch; 524k decode "
             "needs sub-quadratic attention (DESIGN.md §Arch-applicability)")
-    if shape.kind != "train":
-        raise NotBuilt(
-            f"{arch}×{shape.name}: the LM {shape.kind} cells are not built yet ({_NEXT}): "
-            "a KV cache whose heads do not divide the model axis is split over time, "
-            "and K4 returns no log-sum-exp to merge the ranks' softmaxes")
     baxes = batch_axes(mesh)
     params_meta = lm.init(torch.Generator(), cfg, device="meta")
     p_specs = _spec_tree(params_meta, shd.lm_param_pspecs(
@@ -230,6 +234,10 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
     # ``model`` (expert parallelism): a global sort over DTensors would move
     # every token
     moe_fn = moe_lib.make_sharded_moe(mesh, top_k=cfg.top_k) if cfg.is_moe else None
+    if shape.kind == "prefill":
+        return _lm_prefill_cell(arch, shape, mesh, cfg, params_meta, p_specs, moe_fn)
+    if shape.kind == "decode":
+        return _lm_decode_cell(arch, shape, mesh, cfg, params_meta, p_specs, moe_fn)
 
     opt = optim.adamw(3e-4)
     moments = _zero1_pspecs(p_specs, params_meta, data_size=_axis_size(mesh, "data"))
@@ -250,6 +258,41 @@ def _lm_cell(arch: str, shape: LMShape, mesh: DeviceMesh, *, smoke: bool = False
                 out_specs, tuple(_placements(mesh, s) for s in out_specs),
                 costs.lm_model_flops(cfg, tokens, train=True), mesh,
                 note=f"microbatches={n_micro}", init_state=opt.init, n_micro=n_micro)
+
+
+def _lm_prefill_cell(arch, shape: LMShape, mesh, cfg, params_meta, p_specs, moe_fn) -> Cell:
+    """``prefill_step(params, tokens) → (last-token logits, caches)``: the
+    prompt of ``seq_len`` tokens into caches of as many slots, which come
+    out at ``lm_cache_pspecs``' placements (``models/lm.py::prefill``)."""
+    tok = syn.lm_specs(cfg, shape.global_batch, shape.seq_len)["tokens"]
+    t_spec = shd.lm_batch_pspecs({"tokens": tok}, batch_axes(mesh))["['tokens']"]
+    step = _serving(lambda params, tokens: lm.prefill(params, cfg, tokens, shape.seq_len,
+                                                      moe_fn=moe_fn))
+    in_specs = (p_specs, t_spec)
+    return Cell(arch, shape.name, "prefill", step, (_specs_of(params_meta), tok), in_specs,
+                tuple(_placements(mesh, s) for s in in_specs), None, None,
+                costs.lm_model_flops(cfg, shape.global_batch * shape.seq_len, train=False),
+                mesh)
+
+
+def _lm_decode_cell(arch, shape: LMShape, mesh, cfg, params_meta, p_specs, moe_fn) -> Cell:
+    """``decode(params, token, caches) → (logits, caches)``: one new token a
+    sequence against caches of ``seq_len`` slots at ``lm_cache_pspecs``'
+    placements (split over time where the KV heads do not divide
+    ``model``), each layer's attention through K4 on every rank's cache
+    (``layers/attention.py::decode_attention``), the caches written in
+    place."""
+    baxes = batch_axes(mesh)
+    tok, caches = syn.decode_specs(cfg, shape.global_batch, shape.seq_len)
+    c_specs = _spec_tree(caches, shd.lm_cache_pspecs(
+        caches, baxes, model_axis_size=_axis_size(mesh, "model")))
+    step = _serving(lambda params, token, caches: lm.decode_step(params, cfg, token, caches,
+                                                                 moe_fn=moe_fn))
+    in_specs = (p_specs, (baxes if len(baxes) > 1 else baxes[0],), c_specs)
+    return Cell(arch, shape.name, "decode", step, (_specs_of(params_meta), tok, caches),
+                in_specs, tuple(_placements(mesh, s) for s in in_specs), None, None,
+                costs.lm_flops_per_token(cfg, train=False) * shape.global_batch, mesh,
+                note=f"KV cache len {shape.seq_len}")
 
 
 # --------------------------------------------------------------- recsys
@@ -311,6 +354,92 @@ def _recsys_cell(arch: str, shape: RecShape, mesh: DeviceMesh, *, smoke: bool = 
                 per_sample * shape.batch, mesh)
 
 
+# ------------------------------------------------------------------ GNN
+
+
+def _pad_up(n: int, mult: int = 512) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+def pad_graph(batch: dict, n_nodes: int, n_edges: int) -> dict:
+    """A full-graph batch (``data/synthetic.py::random_graph``'s leaves,
+    tensors) padded to ``n_nodes`` nodes and ``n_edges`` edges, inertly:
+    the padded nodes have zero features, label 0 and ``train_mask`` False,
+    and the padded edges are self-loops on the padded nodes, so the loss
+    and every parameter's gradient are the unpadded graph's."""
+    n, e = batch["x"].shape[0], batch["edge_index"].shape[1]
+    if n_nodes < n or n_edges < e or (n_edges > e and n_nodes == n):
+        raise ValueError(f"cannot pad a graph of {n} nodes and {e} edges to {n_nodes} and "
+                         f"{n_edges}: padded edges need a padded node")
+    dev = batch["x"].device
+    pad_nodes = torch.arange(n, n_nodes, device=dev, dtype=batch["edge_index"].dtype)
+    loops = pad_nodes[torch.arange(n_edges - e, device=dev) % max(n_nodes - n, 1)]
+    out = {"x": torch.cat([batch["x"], batch["x"].new_zeros((n_nodes - n, batch["x"].shape[1]))]),
+           "edge_index": torch.cat([batch["edge_index"], torch.stack([loops, loops])], dim=1)}
+    if "labels" in batch:
+        out["labels"] = torch.cat([batch["labels"], batch["labels"].new_zeros(n_nodes - n)])
+        out["train_mask"] = torch.cat([batch["train_mask"],
+                                       batch["train_mask"].new_zeros(n_nodes - n)])
+    return out
+
+
+def _minibatch_loss(params, cfg, x_input, eis, labels, sizes) -> torch.Tensor:
+    """The sampled minibatch's mean NLL of its seed nodes' labels."""
+    blocks = [(ei, n_src, n_dst) for ei, (n_src, n_dst) in zip(eis, sizes)]
+    logits = gnn.forward_blocks(params, cfg, x_input, blocks).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
+
+
+def _gnn_cell(arch: str, shape: GNNShape, mesh: DeviceMesh, *, smoke: bool = False) -> Cell:
+    """A GCN training step, AdamW(1e-2), the weights replicated and the
+    graph split over the batch axes (``gnn_batch_pspecs``): a full graph
+    padded to multiples of 512 nodes and edges (``pad_graph``), a sampled
+    minibatch's blocks at their largest, or a batch of small graphs."""
+    from repro_torch.configs.gcn_cora import config_for_shape
+    cfg = get(arch).smoke_config if smoke else config_for_shape(shape)
+    baxes = batch_axes(mesh)
+    bx = baxes if len(baxes) > 1 else baxes[0]
+    opt = optim.adamw(1e-2)
+    params_meta = gnn.init(torch.Generator(), cfg, device="meta")
+    p_specs = _spec_tree(params_meta, shd.gnn_param_pspecs(params_meta))
+    o_specs = _opt_pspecs("adamw", p_specs)
+    head = (_specs_of(params_meta), _specs_of(opt.init(params_meta)))
+
+    def batch_of(batch_specs):
+        return _spec_tree(batch_specs, shd.gnn_batch_pspecs(batch_specs, baxes))
+
+    if shape.kind == "minibatch":
+        x_spec, blocks = syn.minibatch_block_specs(cfg, shape.batch_nodes, shape.fanouts)
+        ei_specs = [b[0] for b in blocks]
+        sizes = [(b[1], b[2]) for b in blocks]
+        batch_specs = (x_spec, ei_specs, Spec((shape.batch_nodes,), torch.int32))
+        b_specs = ((bx, None), [(None, bx) for _ in ei_specs], (bx,))
+        step = _train_step(lambda p, b: _minibatch_loss(p, cfg, *b, sizes), opt)
+        flops = 3 * costs.gcn_flops(cfg, x_spec.shape[0], sum(e.shape[1] for e in ei_specs))
+        note = f"sampled fanout {tuple(shape.fanouts)}"
+    elif shape.kind == "full":
+        batch_specs = (syn.gnn_full_specs(cfg, _pad_up(shape.n_nodes), _pad_up(shape.n_edges)),)
+        b_specs = (batch_of(batch_specs[0]),)
+        step = _train_step(lambda p, b: gnn.loss_fn(p, cfg, b), opt)
+        flops = 3 * costs.gcn_flops(cfg, shape.n_nodes, shape.n_edges)
+        note = ""
+    else:                                                            # batched small graphs
+        batch_specs = (syn.molecule_specs(cfg, shape.batch, shape.nodes_per_graph,
+                                          shape.edges_per_graph),)
+        b_specs = (batch_of(batch_specs[0]),)
+        step = _train_step(lambda p, b: gnn.graph_loss_fn(p, cfg, b), opt)
+        flops = 3 * costs.gcn_flops(cfg, shape.nodes_per_graph,
+                                    shape.edges_per_graph) * shape.batch
+        note = ""
+    in_specs = (p_specs, o_specs) + b_specs
+    out_specs = (p_specs, o_specs, ())
+    return Cell(arch, shape.name, "train", step, head + batch_specs, in_specs,
+                tuple(_placements(mesh, s) for s in in_specs), out_specs,
+                tuple(_placements(mesh, s) for s in out_specs), flops, mesh, note=note,
+                init_state=opt.init)
+
+
 # ---------------------------------------------------------------- public
 
 
@@ -319,8 +448,7 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *, smoke: bool = Fa
                n_micro: int | None = None) -> Cell:
     """The cell of ``arch`` at ``shape_name`` on ``mesh`` (axes ``data`` and
     ``model``, ``launch/mesh.py``).  Raises ``SkippedCell`` where the
-    reference skips (``long_500k``), ``NotBuilt`` (a ``NotImplementedError``)
-    for the LM prefill/decode and GNN cells (see the module's docstring).
+    reference skips (``long_500k``).
     ``n_micro`` sets an LM training cell's microbatches (by default the
     reference's ladder on the config's size, after ``layers_override``)."""
     spec = get(arch)
@@ -331,9 +459,7 @@ def build_cell(arch: str, shape_name: str, mesh: DeviceMesh, *, smoke: bool = Fa
     if spec.family == "recsys":
         return _recsys_cell(arch, shape, mesh, smoke=smoke)
     if spec.family == "gnn":
-        raise NotBuilt(
-            f"{arch}×{shape_name}: the GNN cells are not built yet ({_NEXT}): their sums "
-            "over edges split across ranks need a fixed-order design of their own")
+        return _gnn_cell(arch, shape, mesh, smoke=smoke)
     raise ValueError(spec.family)
 
 

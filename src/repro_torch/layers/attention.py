@@ -169,6 +169,17 @@ def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_di
     first (as Megatron replicates KV heads): only activations move, the
     weights keep their placements, and the core's output is split again as
     the projections were before it meets the output projection."""
+    out, _, _ = attend(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+                       causal=causal, positions=positions, freqs=freqs)
+    return linear(params["wo"], out)
+
+
+def attend(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
+           causal: bool = True, positions: torch.Tensor | None = None,
+           freqs: torch.Tensor | None = None):
+    """``attention`` up to its output projection: (the heads' outputs
+    (B, S, Hq·D), split as the projections are; k after RoPE and v,
+    (B, S, Hkv, D) each, as the core had them: a prefill's cache rows)."""
     b, s, _ = x.shape
     q, k, v = (linear(params[name], x) for name in ("wq", "wk", "wv"))
     split = None
@@ -184,22 +195,23 @@ def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_di
         if freqs is not None:
             pos = positions if positions is not None else torch.arange(s, device=q.device)
             q, k = apply_rope(q, pos, freqs), apply_rope(k, pos, freqs)
-        return _sdpa(q, k, v, mask, causal_hint=causal)
+        return _sdpa(q, k, v, mask, causal_hint=causal), k
 
     if isinstance(q, DTensor):
         # a split of the batch (dim 0) or of the heads (dim 2) stays; the
         # sequence is made whole, since every query reads every key
         pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements)
-        core = local_map(core, out_placements=list(pl), in_placements=(pl, pl, pl),
-                         in_grad_placements=(pl, pl, pl), device_mesh=q.device_mesh,
-                         redistribute_inputs=True)
-    out = core(q, k, v).reshape(b, s, n_heads * head_dim)
+        core = local_map(core, out_placements=(list(pl), list(pl)),
+                         in_placements=(pl, pl, pl), in_grad_placements=(pl, pl, pl),
+                         device_mesh=q.device_mesh, redistribute_inputs=True)
+    out, k = core(q, k, v)
+    out = out.reshape(b, s, n_heads * head_dim)
     if split is not None:
         # split again as the projections were (a local slice): the output
         # projection takes it as it is, and its gradient is gathered before
         # the heads are
         out = out.redistribute(placements=split)
-    return linear(params["wo"], out)
+    return out, k, v
 
 
 # ------------------------------------------------------------------- decode
@@ -215,18 +227,53 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int, *,
 
 def write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write k, v (B, Hkv, D) at each sequence's slot ``pos`` of the cache,
-    in place.  A sequence whose ``pos`` is past the cache keeps its cache
-    as it was (the JAX package's out-of-range write is dropped): the index
-    is clamped and the old row blended back, with no host sync and no
-    device-side assert."""
-    b, t = cache["k"].shape[:2]
-    pos = cache["pos"]
+    in place.  A sequence whose ``pos`` is outside the cache keeps its
+    cache as it was (the JAX package's out-of-range write is dropped): the
+    index is clamped and the old row blended back, with no host sync and no
+    device-side assert.
+
+    On DTensor caches each rank writes its local tensors.  A cache split
+    over time (``lm_cache_pspecs``) holds slots [r·⌈T/m⌉, …) on rank r of
+    the axis: the rank writes at the local slot ``pos − r·⌈T/m⌉`` and keeps
+    every row where that slot is not one of its own."""
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    if not isinstance(ck, DTensor):
+        _write_rows(ck, cv, k, v, pos)
+        return
+    mesh = ck.device_mesh
+    rows = ops.cache_split(ck.placements, 1)
+    _write_rows(ck.to_local(), cv.to_local(), k.redistribute(mesh, rows).to_local(),
+                v.redistribute(mesh, rows).to_local(),
+                pos.redistribute(mesh, ops.cache_split(ck.placements, None)).to_local(),
+                ops.first_slot(ck)[1])
+
+
+def _write_rows(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                pos: torch.Tensor, lo: int = 0) -> None:
+    """``write_kv`` on plain tensors whose slot 0 is the cache's slot ``lo``."""
+    b, t = ck.shape[:2]
+    slot = pos.long() - lo
     bidx = torch.arange(b, device=pos.device)
-    slot = pos.clamp(0, t - 1).long()
-    keep = (pos < t)[:, None, None]
-    for name, new in (("k", k), ("v", v)):
-        old = cache[name][bidx, slot]
-        cache[name][bidx, slot] = torch.where(keep, new.to(old.dtype), old)
+    keep = ((slot >= 0) & (slot < t))[:, None, None]
+    slot = slot.clamp(0, t - 1)
+    for c, new in ((ck, k), (cv, v)):
+        old = c[bidx, slot]
+        c[bidx, slot] = torch.where(keep, new.to(old.dtype), old)
+
+
+def _rope_at(q: torch.Tensor, k: torch.Tensor, pos: torch.Tensor, freqs: torch.Tensor):
+    """q (B, 1, Hq, D) and k (B, 1, Hkv, D) rotated at each sequence's
+    ``pos``; on DTensors on each rank's batch shard and heads."""
+    def rope(q, k, pos):
+        return apply_rope(q, pos[:, None], freqs), apply_rope(k, pos[:, None], freqs)
+
+    if not isinstance(q, DTensor):
+        return rope(q, k, pos)
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements)
+    pos_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+    return local_map(rope, out_placements=(list(pl), list(pl)),
+                     in_placements=(pl, pl, pos_pl), device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, pos)
 
 
 def decode_attention(params, x: torch.Tensor, cache: dict, *, n_heads: int, n_kv_heads: int,
@@ -241,16 +288,29 @@ def decode_attention(params, x: torch.Tensor, cache: dict, *, n_heads: int, n_kv
     therefore changed: keep a copy if the old state is needed.
 
     The query attends to slots ``t <= pos`` (the new token included), so
-    the kernel, which attends to ``t < n``, is given ``n = pos + 1``."""
+    the kernel, which attends to ``t < n``, is given ``n = pos + 1``.
+
+    On DTensors (a decode cell, ``launch/steps.py``) the projections are
+    gathered where their heads do not divide the axis that splits them, as
+    in ``attention``; RoPE runs on each rank's shards, the write on each
+    rank's slots (``write_kv``) and K4 on each rank's cache
+    (``kernels.ops.decode_attention``, which merges a cache split over time)."""
     b = x.shape[0]
-    q = linear(params["wq"], x).reshape(b, 1, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(b, 1, n_kv_heads, head_dim)
-    v = linear(params["wv"], x).reshape(b, 1, n_kv_heads, head_dim)
+    q, k, v = (linear(params[name], x) for name in ("wq", "wk", "wv"))
+    split = None
+    if _uneven_heads(q, n_heads) or _uneven_heads(k, n_kv_heads):
+        split = q.placements
+        q, k, v = (_whole_heads(t) for t in (q, k, v))
+    q = q.reshape(b, 1, n_heads, head_dim)
+    k = k.reshape(b, 1, n_kv_heads, head_dim)
+    v = v.reshape(b, 1, n_kv_heads, head_dim)
     pos = cache["pos"]
     if freqs is not None:
-        q = apply_rope(q, pos[:, None], freqs)
-        k = apply_rope(k, pos[:, None], freqs)
+        q, k = _rope_at(q, k, pos, freqs)
     write_kv(cache, k[:, 0], v[:, 0])
     out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"], pos + 1)
-    out = linear(params["wo"], out.reshape(b, 1, n_heads * head_dim))
+    out = out.reshape(b, 1, n_heads * head_dim)
+    if split is not None:
+        out = out.redistribute(placements=split)
+    out = linear(params["wo"], out)
     return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -5,8 +5,8 @@ RMSNorm + SwiGLU (a SwiGLU expert stack, ``layers.moe``, in the MoE ones).
 Entry points:
     forward(params, cfg, tokens, moe_fn=None)     logits of a full sequence
     loss_fn(params, cfg, batch, moe_fn=None)      next-token cross-entropy
-    prefill(params, cfg, tokens, max_len)         last-token logits and KV caches
-    decode_step(params, cfg, token, caches)       one token against the caches
+    prefill(params, cfg, tokens, max_len, moe_fn=None)     last-token logits and KV caches
+    decode_step(params, cfg, token, caches, moe_fn=None)   one token against the caches
 
 Parameters are a plain dictionary with the JAX package's keys and layouts;
 ``layers`` is a Python list of per-layer dictionaries (``compat`` unstacks
@@ -18,8 +18,9 @@ place (see ``layers.attention.decode_attention``).
 An MoE layer routes the tokens of each call with the reference's
 capacity, so for an MoE config prefill then decode is not a forward of
 the whole sequence (``layers.moe``).  ``moe_fn`` replaces the MoE layers'
-``apply_moe`` in a forward or a loss (the reference's hook): the cell
-builder passes ``make_sharded_moe``'s expert-parallel layer.  Training runs no hand-written
+``apply_moe`` in a forward, a loss, a prefill or a decode step (the
+reference's hook): ``launch/steps.py``'s cells pass ``make_sharded_moe``'s
+expert-parallel layer.  Training runs no hand-written
 kernel: ``forward_hidden``'s attention is plain tensor code.
 """
 from __future__ import annotations
@@ -27,9 +28,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as shd
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import embedding as emb_lib
 from repro_torch.layers import moe as moe_lib
@@ -207,43 +211,75 @@ def init_caches(cfg: LMConfig, batch: int, max_len: int, *,
             for _ in range(cfg.n_layers)]
 
 
-def _prefill_layer(layer, cfg: LMConfig, x: torch.Tensor, freqs: torch.Tensor, cache: dict):
-    """One prefill layer: writes its K/V into ``cache[:, :S]``, returns x."""
-    b, s, _ = x.shape
-    xin = rms_norm(layer["ln1"], x)
-    q = linear(layer["attn"]["wq"], xin).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = linear(layer["attn"]["wk"], xin).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = linear(layer["attn"]["wv"], xin).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    pos = torch.arange(s, device=x.device)
-    q, k = attn_lib.apply_rope(q, pos, freqs), attn_lib.apply_rope(k, pos, freqs)
-    mask = attn_lib.causal_mask(s, x.device) if s * s <= attn_lib._FLASH_THRESHOLD else None
-    o = attn_lib._sdpa(q, k, v, mask, causal_hint=True)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    x = x + linear(layer["attn"]["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
-    return x + _ffn(layer, cfg, rms_norm(layer["ln2"], x))[0]
+def _prefill_layer(layer, cfg: LMConfig, x: torch.Tensor, freqs: torch.Tensor, moe_fn=None):
+    """One prefill layer: (x after it, (k after RoPE, v), (B, S, Hkv, D)
+    each).  ``moe_fn`` as in ``_ffn``."""
+    o, k, v = attn_lib.attend(layer["attn"], rms_norm(layer["ln1"], x), n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, causal=True,
+                              freqs=freqs)
+    x = x + linear(layer["attn"]["wo"], o)
+    return x + _ffn(layer, cfg, rms_norm(layer["ln2"], x), moe_fn)[0], (k, v)
 
 
-def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int):
+def _cache_of(k: torch.Tensor, v: torch.Tensor, s: int, max_len: int) -> dict:
+    """A layer's cache of ``max_len`` slots holding a prefill's k, v
+    (B, S, Hkv, D) in its first S slots, ``pos`` S.  On DTensors each rank
+    pads its shards and the cache is laid out as ``lm_cache_pspecs`` says
+    (the batch over the axes the tokens are split on, the KV heads over
+    ``model`` where they divide it, else the slots), so that a decode cell
+    takes it as it is."""
+    def pad(k, v):
+        b = k.shape[0]
+        cache = attn_lib.init_kv_cache(b, max_len, k.shape[2], k.shape[3], dtype=k.dtype,
+                                       device=k.device)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        cache["pos"].fill_(s)
+        return cache["k"], cache["v"], cache["pos"]
+
+    if not isinstance(k, DTensor):
+        return dict(zip(("k", "v", "pos"), pad(k, v)))
+    mesh = k.device_mesh
+    names = mesh.mesh_dim_names
+    batch = tuple(n for n, p in zip(names, k.placements) if p.is_shard(0))
+    model = mesh.size(names.index("model")) if "model" in names else 0
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in k.placements)
+    pos_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    ck, cv, pos = local_map(pad, out_placements=(list(pl), list(pl), list(pos_pl)),
+                            in_placements=(pl, pl), device_mesh=mesh,
+                            redistribute_inputs=True)(k, v)
+    spec = shd.lm_cache_pspecs({"k": ck}, batch, model_axis_size=model)["['k']"]
+    want = shd.to_placements(mesh, spec)
+    return {"k": ck.redistribute(mesh, want), "v": cv.redistribute(mesh, want), "pos": pos}
+
+
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int, *, moe_fn=None):
     """Run the prompt tokens (B, S), fill fresh KV caches of ``max_len``
-    slots; returns (last-token logits (B, V), caches with pos = S)."""
+    slots; returns (last-token logits (B, V), caches with pos = S).
+    ``moe_fn`` replaces ``apply_moe`` in the MoE layers (see ``_ffn``).  On
+    DTensors (a prefill cell, ``launch/steps.py``) attention's core runs on
+    each rank's sequences and heads, and the caches come out at
+    ``lm_cache_pspecs``' placements (``_cache_of``)."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit caches of {max_len} slots")
     x = emb_lib.lookup(params["embed"], tokens)
     freqs = _freqs(cfg, x.device)
-    caches = init_caches(cfg, b, max_len, device=x.device)
-    for layer, cache in zip(params["layers"], caches):
-        x = _prefill_layer(layer, cfg, x, freqs, cache)
-        cache["pos"].fill_(s)
+    caches = []
+    for layer in params["layers"]:
+        x, (k, v) = _prefill_layer(layer, cfg, x, freqs, moe_fn)
+        caches.append(_cache_of(k, v, s, max_len))
     x = rms_norm(params["ln_f"], x[:, -1:])
     return _unembed(params, cfg, x)[:, 0], caches
 
 
-def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict]):
+def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict], *,
+                moe_fn=None):
     """token (B,) int → (logits (B, V), caches).  One decode step; each
     layer's new K/V are written in place into ``caches`` (the list
-    returned holds the same tensors, with ``pos`` advanced by one)."""
+    returned holds the same tensors, with ``pos`` advanced by one).
+    ``moe_fn`` as in ``prefill``; on DTensor caches (a decode cell) see
+    ``layers.attention.decode_attention``."""
     x = emb_lib.lookup(params["embed"], token)[:, None]              # (B, 1, D)
     freqs = _freqs(cfg, x.device)
     new_caches = []
@@ -252,7 +288,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: list[dict]):
             layer["attn"], rms_norm(layer["ln1"], x), cache, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, freqs=freqs)
         x = x + h
-        x = x + _ffn(layer, cfg, rms_norm(layer["ln2"], x))[0]
+        x = x + _ffn(layer, cfg, rms_norm(layer["ln2"], x), moe_fn)[0]
         new_caches.append(cache)
     x = rms_norm(params["ln_f"], x)
     return _unembed(params, cfg, x)[:, 0], new_caches

@@ -19,7 +19,9 @@ shapes that rank holds:
 * bytes are each operation's distinct inputs plus its outputs, each at most
   its storage's size (a broadcast input is read once); an operation that
   returns a view, and an allocation that writes nothing, counts zero; a
-  gather counts its source at most as many bytes as it writes out;
+  gather counts its source at most as many bytes as it writes out, and an
+  in-place scatter its destination at most as many bytes as it writes in
+  (a decode step's K/V write touches B rows of a 2 GB cache, not all of it);
 * collectives are the functional ones (``_c10d_functional``, what DTensor
   issues) and the in-place ``c10d.*_`` ones (``dist.all_reduce``), each
   recorded as (kind, result bytes, the group's ranks) and costed with the
@@ -210,6 +212,10 @@ _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty", "new_empty_s
                "device", "resize_", "set_"}
 # gathers: the source is read at most as many bytes as the result holds
 _GATHERS = {"embedding", "index_select", "index", "gather", "take"}
+# in-place scatters into their first argument: the destination is read and
+# written at most as many bytes as the largest other input (the values)
+_SCATTERS = {"index_put_", "_index_put_impl_", "index_add_", "index_copy_", "scatter_",
+             "scatter_add_", "scatter_reduce_"}
 _LINK_OPS = {"_c10d_functional", "c10d_functional", "c10d"}
 _KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
           ("reduce_scatter", "reduce-scatter"), ("all_reduce", "all-reduce"),
@@ -380,6 +386,10 @@ class StepCounter(TorchDispatchMode):
         in_bytes = [tensor_bytes(t) for t in ins]
         if name in _GATHERS and in_bytes:
             in_bytes[0] = min(in_bytes[0], out_bytes)
+        if name in _SCATTERS and len(in_bytes) > 1:
+            written = max(in_bytes[1:])
+            in_bytes[0] = min(in_bytes[0], written)
+            out_bytes = min(out_bytes, written)
         self.bytes += sum(in_bytes) + out_bytes
         self.op_bytes[f"{func.namespace}.{name}"] += sum(in_bytes) + out_bytes
 

@@ -1,5 +1,5 @@
 """The port's dry run (``launch/dryrun.py``) over the recommendation cells
-and over the cells it does not count, on the CPU.
+and over the LM prefill and decode and GNN cells, on the CPU.
 
 Every recommendation cell ``launch/steps.py`` builds is run by
 ``dryrun.run_cell`` at smoke size on a (2, 4) ``(data, model)`` mesh of a
@@ -7,10 +7,11 @@ fake world of 8 ranks (fake tensors: nothing is allocated): each record
 has the reference's keys, a peak no lower than its arguments, counted
 FLOPs and bytes, its kernels' work, and ``model_flops`` equal to the
 reference's cell's (``torch_reference_cells.reference_cells``).  The LM
-``train_4k`` cells are in ``tests/test_torch_dryrun_lm.py``.  Over ``all_cells()`` the
-run skips the 5 cells the reference skips and counts the 14 the port does
-not build yet as not built, none failed; and the command line writes its
-record for ``dlrm-rmc2 × train_batch`` at full size on the CPU."""
+``train_4k`` cells are in ``tests/test_torch_dryrun_lm.py``.  Over the
+other cells of ``all_cells()`` the run counts the 14 LM prefill and decode
+and GNN cells, K4 once a layer in each decode cell, and skips the 5 the
+reference skips, none failed; and the command line writes its record for
+``dlrm-rmc2 × train_batch`` at full size on the CPU."""
 import json
 import os
 import subprocess
@@ -23,6 +24,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from conftest import SRC
 from torch_reference_cells import built_cells, reference_cells  # noqa: F401  (a fixture)
 from repro_torch import configs
+from repro_torch.kernels import decode_attention as da_kernel
 from repro_torch.launch import dryrun, steps
 
 RECSYS_CELLS = [c for c in built_cells() if configs.get(c[0]).family == "recsys"]
@@ -73,13 +75,35 @@ def test_dryrun_counts_a_recommendation_cell(arch, shape, mesh8, reference_cells
 
 
 def test_dryrun_skips_and_leaves_out_what_it_does_not_count(mesh8):
-    others = [c for c in steps.all_cells() if c not in built_cells()]
-    assert len(built_cells()) == 21 and len(others) == 19
+    """The cells that are neither recommendation nor LM ``train_4k`` cells:
+    the 14 LM prefill/decode and GNN cells counted, the 5 ``long_500k``
+    skipped, none failed."""
+    others = [c for c in steps.all_cells()
+              if configs.get(c[0]).family != "recsys" and c[1] != "train_4k"]
+    assert len(built_cells()) == 35 and len(others) == 19
     res = dryrun.run_cells(others, mesh8, "test_2x4", smoke=True)
-    assert (res["ok"], res["skipped"], res["not_built"], res["failed"]) == (0, 5, 14, [])
-    assert all("not_built" in r or "skipped" in r for r in res["records"].values())
+    assert (res["ok"], res["skipped"], res["failed"]) == (14, 5, [])
     assert {c for c, r in res["records"].items() if "skipped" in r} == {
         (a, "long_500k") for a in configs.ASSIGNED_ARCHS if configs.get(a).family == "lm"}
+    for (arch, shape), rec in res["records"].items():
+        if "skipped" in rec:
+            continue
+        assert rec["kind"] == {"prefill_32k": "prefill", "decode_32k": "decode"}.get(
+            shape, "train")
+        assert rec["roofline"]["flops"] > 0 and rec["roofline"]["bytes_accessed"] > 0
+        # K4 once a layer in a decode step, each launch's work at every slot
+        kernels = {k: v["calls"] for k, v in rec["kernels"].items()}
+        cfg = configs.get(arch).smoke_config
+        assert kernels == ({"decode_attention": cfg.n_layers} if shape == "decode_32k"
+                           else {}), (arch, shape)
+        if shape == "decode_32k":
+            lm_shape, m = configs.LM_SHAPES[shape], 4
+            if cfg.n_kv_heads % m == 0:                 # split by heads
+                hq, hkv, t = cfg.n_heads // m, cfg.n_kv_heads // m, lm_shape.seq_len
+            else:                                       # split over time
+                hq, hkv, t = cfg.n_heads, cfg.n_kv_heads, lm_shape.seq_len // m
+            work = da_kernel.work(lm_shape.global_batch // 2, hq, hkv, cfg.hd, t, 4)
+            assert rec["kernels"]["decode_attention"]["bytes"] == cfg.n_layers * work[1]
 
 
 def test_the_command_line_writes_its_record(tmp_path):
@@ -89,7 +113,7 @@ def test_the_command_line_writes_its_record(tmp_path):
                           "--device", "cpu", "--arch", "dlrm-rmc2", "--shape", "train_batch"],
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "ok=1 skipped=0 not_built=0 failed=0" in res.stdout
+    assert "ok=1 skipped=0 failed=0" in res.stdout
     rec = json.loads((tmp_path / "dryrun_torch" / "single_pod_16x16" /
                       "dlrm-rmc2__train_batch.json").read_text())
     assert rec["chips"] == 256 and rec["roofline"]["chips"] == 256

@@ -17,7 +17,7 @@ from repro_torch.core import costs
 from repro_torch.launch import dryrun
 from test_torch_dryrun import check_record
 
-LM_CELLS = [c for c in built_cells() if configs.get(c[0]).family == "lm"]
+LM_CELLS = [c for c in built_cells() if c[1] == "train_4k"]
 
 
 @pytest.fixture(scope="module")

@@ -527,6 +527,67 @@ def test_decode_attention_kernel_graph_replay_same_bits(dev, b, t, pos):
                                rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("b,hq,hkv,d,t", [
+    (8, 14, 2, 64, 1024),                                           # lm_generate's shape
+    (128, 14, 2, 64, 32768),                                        # decode_32k's
+    (8, 16, 8, 64, 1024), (8, 32, 4, 128, 1024),                    # granite-moe, qwen3-moe
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_lse(dev, b, hq, hkv, d, t, dtype):
+    """K4's log-sum-exp, written by the main kernel for a sequence of one
+    run and by the combine for one of more, against the plain version's
+    (float32 either way: within 1e-4 of 1 + |lse|), -inf where pos <= 0;
+    the output the lse-less launch's bits, and one launch either way."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, rng = _decode_inputs(dev, b, hq, hkv, d, t, dtype)
+    run = da.plan(b, hkv, t, d, q.element_size(), da.sm_count(dev.index or 0)).run_slots
+    boundaries = np.clip([(i // 3 + 1) * run + i % 3 - 1 for i in range(b)], 1, t)
+    for pos in (rng.integers(1, t + 1, size=b), np.zeros(b), np.ones(b), np.full(b, t),
+                boundaries, np.where(np.arange(b) % 2, 0, t)):
+        pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+        before = ops.launch_counts()["decode_attention"]
+        out, lse = ops.decode_attention(q, k, v, pos, return_lse=True)
+        plain_out = ops.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == before + 2
+        assert torch.equal(out, plain_out)
+        assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+        _, want = ref.decode_attention(q, k, v, pos, return_lse=True)
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(want))
+        assert bool(torch.isneginf(lse[pos <= 0]).all())
+        fin = torch.isfinite(want)
+        err = (lse[fin] - want[fin]).abs()
+        assert bool((err <= 1e-4 * (1 + want[fin].abs())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("pos_kind", ["full", "uniform"])
+def test_decode_attention_sliced_and_merged_is_one_launch(dev, pos_kind):
+    """A 32,768-slot cache cut into 16 slices of 2,048 (a decode_32k cache
+    split over time on a 16-way model axis): each slice's launch with its
+    log-sum-exp at its local length, merged in slice order
+    (``ref.merge_decode_attention``), against one launch over the whole
+    cache, bf16 within 3e-2 (atol scaled by the result's magnitude, as
+    chip_smoke.py's ``decode_compare``); the merged lse within 1e-4."""
+    b, t, n = 8, 32768, 16
+    per = t // n
+    q, k, v, rng = _decode_inputs(dev, b, 14, 2, 64, t, torch.bfloat16)
+    pos = rng.integers(1, t + 1, size=b) if pos_kind == "uniform" else np.full(b, t)
+    pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    whole, whole_lse = ops.decode_attention(q, k, v, pos, return_lse=True)
+    outs, lses = [], []
+    for r in range(n):
+        local = (pos - r * per).clamp(0, per).to(torch.int32)
+        o, lse = ops.decode_attention(q, k[:, r * per:(r + 1) * per].contiguous(),
+                                      v[:, r * per:(r + 1) * per].contiguous(), local,
+                                      return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    merged, merged_lse = ref.merge_decode_attention(torch.stack(outs), torch.stack(lses))
+    atol = 3e-2 * min(1.0, float(whole.abs().max()))
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=3e-2, atol=atol)
+    torch.testing.assert_close(merged_lse, whole_lse, rtol=1e-4, atol=1e-4)
+
+
 def test_decode_attention_kernel_past_the_cache(dev):
     """pos > T reads every slot, as pos = T does."""
     q, k, v, _ = _decode_inputs(dev, 2, 14, 2, 64, 100, torch.float32)
@@ -1043,3 +1104,81 @@ def test_accounted_decode_attention_is_its_timing_figure(smoke_script):
     assert _kernel_work(got, "decode_attention") == _figure(t)
     # every slot counted; the run's own bound reads only up to each pos
     assert t["accounted_bound_ms"] >= t["bound_ms"]
+
+
+def test_lm_decode_and_prefill_cells_on_dtensors_are_their_plain_steps(nccl_world_of_one):
+    """qwen2's smoke decode cell (B = 4, 64 slots) on a (1, 1) mesh against
+    ``lm.decode_step`` on copies of the same caches, 3 steps: the same
+    bits, n_layers K4 launches a step on each path; granite-moe's smoke
+    prefill cell (``make_sharded_moe``) against ``lm.prefill`` (``apply_moe``,
+    whose ``index_add_`` sums in no fixed order on the card) within 1e-5."""
+    from repro_torch.configs import LMShape
+    from repro_torch.launch import steps
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    cfg = configs.get("qwen2-0.5b").smoke_config
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(0), cfg, 4, 9)["tokens"]).to(dev)
+    _, caches = lm.prefill(params, cfg, toks[:, :6], 64)
+    cell = steps._lm_cell("qwen2-0.5b", LMShape("decode", 64, 4, "decode"), mesh, smoke=True)
+    p_d, _, c_d = cell.place(params, None, [{k: t.clone() for k, t in c.items()}
+                                            for c in caches])
+    for i in range(6, 9):
+        ops.reset_launch_counts()
+        want, caches = lm.decode_step(params, cfg, toks[:, i], caches)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == cfg.n_layers
+        ops.reset_launch_counts()
+        got, c_d = cell.fn(p_d, cell.place(None, toks[:, i])[1], c_d)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == cfg.n_layers
+        assert torch.equal(got.to_local(), want)
+    for cd, c in zip(c_d, caches):
+        assert all(torch.equal(cd[k].to_local(), c[k]) for k in c)
+
+    cfg = configs.get("granite-moe-1b-a400m").smoke_config
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.from_numpy(syn.lm_batch(np.random.default_rng(1), cfg, 2, 16)["tokens"]).to(dev)
+    cell = steps._lm_cell("granite-moe-1b-a400m", LMShape("prefill", 16, 2, "prefill"), mesh,
+                          smoke=True)
+    got, got_caches = cell.fn(*cell.place(params, toks))
+    want, want_caches = lm.prefill(params, cfg, toks, 16)
+    torch.testing.assert_close(got.to_local(), want, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got_caches, want_caches):
+        for k in w:
+            torch.testing.assert_close(g[k].to_local(), w[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["full", "batched"])
+def test_gnn_cells_on_dtensors_are_their_plain_steps(nccl_world_of_one, kind):
+    """The GCN smoke cell (a padded full graph, or a batch of molecules) on
+    a (1, 1) mesh: one step on DTensors and on plain tensors, the same
+    bits (loss, parameters, AdamW state)."""
+    from repro_torch.configs import GNNShape
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.utils import leaves_with_paths, tree_map
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    cfg = configs.get("gcn-cora").smoke_config
+    rng = np.random.default_rng(0)
+    if kind == "full":
+        shape = GNNShape("full", "full", n_nodes=300, n_edges=1000)
+        g = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+             syn.random_graph(rng, 300, 1000, cfg.d_feat, cfg.n_classes).items()}
+        batch = steps.pad_graph(g, 512, 1024)
+    else:
+        shape = GNNShape("molecule", "batched", batch=8, nodes_per_graph=5, edges_per_graph=7)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 syn.molecule_batch(rng, 8, 5, 7, cfg.d_feat, cfg.n_classes).items()}
+    cell = steps._gnn_cell("gcn-cora", shape, mesh, smoke=True)
+    params = gnn.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    state = cell.init_state(params)
+    sharded = cell.place(tree_map(torch.clone, params), tree_map(torch.clone, state), batch)
+    loss_d = cell.fn(*sharded)[2]
+    loss = cell.fn(params, state, batch)[2]
+    assert torch.equal(loss_d.to_local(), loss)
+    for got_tree, want_tree in ((sharded[0], params), (sharded[1], state)):
+        got = dict(leaves_with_paths(got_tree))
+        for k, want in leaves_with_paths(want_tree):
+            assert torch.equal(got[k].to_local(), want), k

@@ -258,6 +258,26 @@ def test_two_chunk_bulk_forward_counts_twice_one_chunk():
     assert c2.bytes == 2 * c1.bytes + 2 * two.numel() * two.element_size()
 
 
+def test_an_in_place_scatter_counts_the_rows_it_writes():
+    """A decode step's K/V write (``write_kv``: ``index_put_`` of B rows
+    into a cache) counts the rows read and written, the values and the
+    indices, not the whole cache; an out-of-place ``index_put`` writes a
+    whole new tensor and counts it."""
+    b, t, h, d = 4, 4096, 2, 64
+    fm = FakeTensorMode()
+    with fm:
+        cache = {"k": torch.empty((b, t, h, d)), "v": torch.empty((b, t, h, d)),
+                 "pos": torch.empty((b,), dtype=torch.int32)}
+        new = torch.empty((b, h, d))
+    _, c = analysis.count(lambda c_, n_: attention.write_kv(c_, n_, n_), (cache, new))
+    row = b * h * d * 4
+    assert c.op_bytes["aten.index_put_"] == 2 * (3 * row + 2 * b * 8)
+    assert c.bytes < 20 * row
+    _, c = analysis.count(lambda x, n_: x.index_put((torch.arange(b),), n_[:, 0, 0]),
+                          (cache["k"][:, :, 0, 0], new))
+    assert c.op_bytes["aten.index_put"] >= 2 * b * t * 4
+
+
 def _lm_extrapolation(first: int, n: int) -> tuple[dict, dict]:
     """``dryrun.count_lm_layers`` from L = ``first``, ``first`` + 1 to ``n``
     layers, and a direct count at ``n``, of phi3's smoke ``train_4k`` cell

@@ -153,3 +153,79 @@ def cells_rank(rank: int, world: int, rdzv: str, in_path: str, out_dir: str) -> 
                 pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def _gnn_args(case: dict) -> tuple:
+    """A GNN case's step arguments after the parameters and optimiser state,
+    as tensors (the minibatch cell's edge indices a list)."""
+    b = case["batch"]
+    if case["shape"].kind == "minibatch":
+        return (torch.from_numpy(b["x"]), [torch.from_numpy(e) for e in b["eis"]],
+                torch.from_numpy(b["labels"]))
+    return ({k: torch.from_numpy(v) for k, v in b.items()},)
+
+
+def serving_cells_rank(rank: int, world: int, rdzv: str, in_path: str, out_dir: str) -> None:
+    """tests/test_torch_cells_lm_gnn.py's cases on one rank of a world of 4.
+
+    An LM case: its prefill cell on the prompt (logits, the caches whole,
+    the caches' placements), then its decode cell from the case's
+    ``start_caches`` (a one-device prefill into caches of ``slots`` slots),
+    a step a token (logits, and the caches whole after the last step), run
+    twice from the same caches.  A GNN
+    case: one step of its cell (loss, parameters, optimiser state), twice
+    from the same state.  Rank 0 writes ``out_dir/serving_cells.pkl``."""
+    _init(rank, world, rdzv)
+    try:
+        with open(in_path, "rb") as f:
+            cases = pickle.load(f)
+        out = {}
+        for case in cases:
+            mesh = mesh_lib.make_host_mesh(*case["mesh"], device="cpu")
+            if "variant" in case:                      # a smoke config changed in one field
+                base = get(case["base"])
+                cfg = dataclasses.replace(base.smoke_config, **case["variant"])
+                register(ArchSpec(case["arch"], base.family, cfg, cfg, base.source))
+            params = compat.from_jax_params(case["params"], device="cpu")
+            res = {}
+            if case["family"] == "lm":
+                toks = torch.from_numpy(case["tokens"])
+                b, s = toks.shape[0], case["prompt"]
+                pre = steps._lm_cell(case["arch"], LMShape("prefill", s, b, "prefill"), mesh,
+                                     smoke=True)
+                logits, caches = pre.fn(*pre.place(params, toks[:, :s]))
+                res["prefill_logits"] = logits.full_tensor().numpy()
+                res["prefill_caches"] = _full(caches)
+                res["prefill_placements"] = {p: str(t.placements)
+                                             for p, t in leaves_with_paths(caches)}
+                dec = steps._lm_cell(case["arch"], LMShape("decode", case["slots"], b, "decode"),
+                                     mesh, smoke=True)
+                start = [{k: torch.from_numpy(v) for k, v in c.items()}
+                         for c in case["start_caches"]]
+                runs = []
+                for _ in range(2):
+                    p_d, _, c_d = dec.place(params, None, copy.deepcopy(start))
+                    steps_out = []
+                    for t in range(s, toks.shape[1]):
+                        logits, c_d = dec.fn(p_d, dec.place(None, toks[:, t])[1], c_d)
+                        steps_out.append(logits.full_tensor().numpy())
+                    runs.append({"logits": steps_out, "caches": _full(c_d)})
+                res["decode"] = runs
+                res["cache_placements"] = {p: str(t.placements)
+                                           for p, t in leaves_with_paths(c_d)}
+            else:
+                cell = steps._gnn_cell(case["arch"], case["shape"], mesh, smoke=True)
+                runs = []
+                for _ in range(2):
+                    p = copy.deepcopy(params)
+                    new_p, new_o, loss = cell.fn(*cell.place(p, cell.init_state(p),
+                                                             *_gnn_args(case)))
+                    runs.append({"loss": float(loss.full_tensor()), "params": _full(new_p),
+                                 "state": _full(new_o)})
+                res["runs"] = runs
+            out[case["name"]] = res
+        if rank == 0:
+            with open(os.path.join(out_dir, "serving_cells.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()

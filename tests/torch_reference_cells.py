@@ -41,12 +41,10 @@ print("OK")
 
 def built_cells() -> list[tuple[str, str]]:
     """The (arch, shape) cells the port's ``launch/steps.py`` builds: every
-    recommendation cell and every LM ``train_4k`` cell."""
-    from repro_torch import configs
-    lm = [(a, "train_4k") for a in configs.ASSIGNED_ARCHS if configs.get(a).family == "lm"]
-    rec = [(a, s) for a in configs.ASSIGNED_ARCHS if configs.get(a).family == "recsys"
-           for s in configs.RECSYS_SHAPES]
-    return rec + lm
+    assigned cell but the five the reference skips (``long_500k``), 35."""
+    from repro_torch.configs import FULL_ATTENTION_SKIPS
+    from repro_torch.launch import steps
+    return [c for c in steps.all_cells() if c[1] not in FULL_ATTENTION_SKIPS]
 
 
 @pytest.fixture(scope="module")
