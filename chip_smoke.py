@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port: the quickest proof that the port
 builds its kernels and serves on a card.
 
-    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~6 minutes
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc; ~15 minutes
 
 What it does, one JSON line per phase:
 
@@ -107,7 +107,17 @@ What it does, one JSON line per phase:
                  K3); granite-moe-1b-a400m's train_4k step through
                  make_sharded_moe, 4 x 1,024 tokens, against one plain
                  step (loss within rtol 2e-4); each timed, median of 3;
-                 within 300 s.  Then K4 on a decode_32k cache cut into 16
+                 within 300 s.  Then qwen2-0.5b's train_4k step at its
+                 published width and depth (24 layers, bf16, remat on),
+                 16 x 4,096 tokens (one data rank's share of the single-pod
+                 mesh's 256 sequences), on DTensors against the plain AdamW
+                 step of lm.loss_fn (loss, every parameter and AdamW leaf
+                 the same bits, no launch), each timed (median of 3), each
+                 path's peak, a 2-layer plain step profiled; and remat on against
+                 off (and without flash_sdpa's checkpoints) at 2 layers and
+                 1 x 4,096 tokens: loss and every gradient the same bits,
+                 each variant's peak and step time; within 420 s.  Then K4
+                 on a decode_32k cache cut into 16
                  slices of 2,048 slots (lm_cache_pspecs' time split on a
                  16-way model axis), each slice's launch with its
                  log-sum-exp at its local length, merged in slice order,
@@ -129,7 +139,8 @@ What it does, one JSON line per phase:
                  AdamW state: the same bits or the gradient gate's TOL), the
                  padded step's loss against the unpadded one's; within 300 s
                  more
-  roofline       the cells phase's three steps counted on fake tensors in a
+  roofline       the cells phase's four training and serving steps counted
+                 on fake tensors in a
                  fake world of one rank (roofline/analysis.py: per-rank
                  FLOPs by unit, bytes, collectives, each hand-written
                  kernel's work(), MemTracker's peak) at the sizes the phase
@@ -378,6 +389,11 @@ CELLS_PREFILL = ("granite-moe-1b-a400m", "prefill_32k")
 CELLS_PREFILL_BATCH = 2                         # cut from prefill_32k's 32 sequences
 CELLS_PREFILL_LAYERS = 2                        # cut from 24: flash_sdpa's eager chunk loop
 CELLS_GNN = ("ogb_products", "molecule")
+CELLS_QWEN = ("qwen2-0.5b", "train_4k")        # published width and depth, remat on
+CELLS_QWEN_BATCH = 16                           # one data rank's share of 256 on (16, 16)
+CELLS_REMAT_LAYERS = 2                          # remat on against off: the step without fits
+CELLS_REMAT_BATCH = 1
+CELLS_QWEN_SECONDS = 420.0                      # the qwen2 train_4k path and its remat check
 K4_SLICES = 16                                  # a decode_32k cache over a 16-way model axis
 K4_LSE_RTOL = 1e-4                              # float32 log-sum-exps against the plain ones
 CELLS_SERVING_SECONDS = 300.0                   # the phase's K4 split, LM and GNN cells
@@ -3542,6 +3558,147 @@ def cells_train_lm(seed: int, dev, gen, mesh, launches: dict) -> dict:
     return out
 
 
+def lm_train_gate(what: str, launches: dict, loss: tuple, params: tuple,
+                  opt_state: tuple) -> dict:
+    """The qwen2 train_4k path's gate, each pair (DTensor step's, plain
+    step's): no kernel launched (an LM training step runs none), the loss
+    the same bits, every parameter and AdamW leaf the same bits or named at
+    the gradient gate's TOL (``same_leaves``)."""
+    expect_cell_launches(what, launches, {})
+    got, want = loss
+    if not torch.isfinite(want) or not torch.equal(got, want):
+        fail(f"cells {what}: DTensor loss {float(got)} != plain {float(want)}")
+    return {"loss": float(want),
+            "params": same_leaves(f"cells {what} params", *params),
+            "opt_state": same_leaves(f"cells {what} AdamW state", *opt_state)}
+
+
+@contextlib.contextmanager
+def flash_checkpoints_off():
+    """``layers.attention.checkpointed`` runs its function plainly within:
+    with a config without ``remat``, ``flash_sdpa``'s loop as it was before
+    its checkpoints, timed beside them."""
+    from repro_torch.layers import attention as attn_lib
+    real = attn_lib.checkpoint
+    attn_lib.checkpoint = lambda fn, *args, **_: fn(*args)
+    try:
+        yield
+    finally:
+        attn_lib.checkpoint = real
+
+
+def remat_on_against_off(seed: int, dev, gen) -> dict:
+    """qwen2-0.5b at CELLS_REMAT_LAYERS layers and CELLS_REMAT_BATCH x
+    4,096 tokens, where a step without remat fits: the loss and every
+    gradient of ``lm.loss_fn`` with ``remat`` and without it, and without
+    ``flash_sdpa``'s checkpoints too, the same bits (``torch.equal``); each
+    variant's peak and its step's time (events, median of CELLS_TIMED
+    calls, host issue in), so that the eager loop's host cost is on
+    record.  No kernel runs."""
+    arch, shape = CELLS_QWEN
+    s = configs.LM_SHAPES[shape].seq_len
+    on = dataclasses.replace(configs.get(arch).config, n_layers=CELLS_REMAT_LAYERS)
+    params = lm.init(gen, on, device=dev)
+    batch = to_device(syn.lm_batch(np.random.default_rng(seed), on, CELLS_REMAT_BATCH, s), dev)
+    out = {"layers": CELLS_REMAT_LAYERS, "batch": [CELLS_REMAT_BATCH, s]}
+    runs = {}
+    for name, cfg, ctx in (("remat", on, contextlib.nullcontext),
+                           ("no_remat", dataclasses.replace(on, remat=False),
+                            contextlib.nullcontext),
+                           ("no_remat_no_flash_checkpoints", dataclasses.replace(on, remat=False),
+                            flash_checkpoints_off)):
+        def step():
+            return value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b), params, batch)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        with ctx():
+            _, (first,) = timed_calls(step, 1)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            ms, _ = timed_calls(step, CELLS_TIMED)
+        expect_cell_launches(f"{arch} {name}", ops.launch_counts(), {})
+        runs[name] = (first[0], dict(leaves_with_paths(first[1])))
+        out[name] = {"step_ms": ms, "max_memory_allocated_gb": peak}
+    loss, grads = runs["remat"]
+    for name in ("no_remat", "no_remat_no_flash_checkpoints"):
+        if not torch.isfinite(loss) or not torch.equal(loss, runs[name][0]):
+            fail(f"cells remat: loss {float(loss)} with remat, {float(runs[name][0])} {name}")
+        differ = [k for k, g in grads.items() if not torch.equal(g, runs[name][1][k])]
+        if differ:
+            fail(f"cells remat: gradients {differ} differ with remat and {name}")
+    out.update(loss=float(loss), gradients_same_bits=len(grads))
+    del params, batch, runs, loss, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_train_qwen2(seed: int, dev, gen, mesh, launches: dict) -> dict:
+    """qwen2-0.5b's train_4k cell at published width and depth (24 layers,
+    bf16, ``remat``), CELLS_QWEN_BATCH sequences of 4,096 tokens: one data
+    rank's share of the single-pod mesh's 256.  One step of the cell's
+    train_step on DTensors against the same AdamW step of ``lm.loss_fn`` on
+    plain tensors from the same weights, state and batch (``lm_train_gate``:
+    zero launches, the same bits), each path's peak; then CELLS_TIMED - 1
+    more steps of each, its time the median of its CELLS_TIMED (events, host
+    issue in: a step takes tens of seconds, so the first counts); the
+    profile of a plain step of the same batch at CELLS_REMAT_LAYERS layers
+    (a 24-layer step's trace holds millions of events); then
+    ``remat_on_against_off``."""
+    arch, shape = CELLS_QWEN
+    cfg = configs.get(arch).config
+    s = configs.LM_SHAPES[shape].seq_len
+    cell = steps_lib.build_cell(arch, shape, mesh)
+    torch.cuda.empty_cache()
+    params = lm.init(gen, cfg, device=dev)
+    state = cell.init_state(params)
+    batch = to_device(syn.lm_batch(np.random.default_rng(seed), cfg, CELLS_QWEN_BATCH, s), dev)
+    sharded = cell.place(clone_tree(params), clone_tree(state), batch)
+    opt = optim.adamw(3e-4)                       # the cell's optimiser
+
+    def plain_step():
+        loss, grads = value_and_grad(lambda p, b_: lm.loss_fn(p, cfg, b_), params, batch)
+        opt.update(grads, state, params)
+        return loss
+
+    out = {"arch": arch, "shape": shape, "batch": [CELLS_QWEN_BATCH, s],
+           "layers": cfg.n_layers, "remat": cfg.remat, "mesh": list(mesh.shape),
+           "reduced": f"batch {CELLS_QWEN_BATCH} x {s} tokens, one data rank's share of "
+                      f"{configs.LM_SHAPES[shape].global_batch} x {s} on the (16, 16) mesh",
+           "held_before_gb": torch.cuda.memory_allocated(dev) / 1e9,   # both paths' trees
+           "max_memory_allocated_gb": {}}
+    steps = {"dtensor": lambda: cell.fn(*sharded)[2], "plain": plain_step}
+    ms, firsts = {}, {}
+    ops.reset_launch_counts()
+    for name, fn in steps.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        first_ms, (firsts[name],) = timed_calls(fn, 1)
+        ms[name] = [first_ms]
+        out["max_memory_allocated_gb"][name] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out.update(lm_train_gate(
+        f"{arch} {shape}", ops.launch_counts(),
+        (local_leaves({"l": firsts["dtensor"]})["['l']"], firsts["plain"]),
+        (local_leaves(sharded[0]), local_leaves(params)),
+        (local_leaves(sharded[1]), local_leaves(state))))
+    for name, fn in steps.items():
+        ms[name] += [timed_calls(fn, 1)[0] for _ in range(CELLS_TIMED - 1)]
+    tally(launches, f"{arch} {shape} steps", {})
+    out["steps_ms"] = ms
+    out["step_ms"] = {name: statistics.median(v) for name, v in ms.items()}
+    del params, state, batch, sharded, cell
+    torch.cuda.empty_cache()
+    two = dataclasses.replace(cfg, n_layers=CELLS_REMAT_LAYERS)
+    params = lm.init(gen, two, device=dev)
+    batch = to_device(syn.lm_batch(np.random.default_rng(seed), two, CELLS_QWEN_BATCH, s), dev)
+    out["profile_plain_two_layers"] = step_profile(
+        lambda: value_and_grad(lambda p, b_: lm.loss_fn(p, two, b_), params, batch), top=10)
+    tally(launches, f"{arch} {shape} profiled step", {})
+    del params, batch
+    torch.cuda.empty_cache()
+    out["remat_on_against_off"] = remat_on_against_off(seed, dev, gen)
+    return out
+
+
 def check_k4_time_split(seed: int, gen, dev) -> dict:
     """K4 as a decode cell runs it on a cache split over time: a decode_32k
     cache (qwen2-0.5b's heads, bf16) cut into K4_SLICES slices, each slice's
@@ -3833,7 +3990,9 @@ def cells_phase(seed: int, dev, gen) -> dict:
     rank, a (1, 1) (data, model) mesh; RMC2's train_batch step, xDeepFM's
     serve_p99 step and granite-moe's train_4k step on DTensors, each held
     against the same step on plain tensors (see each part), within
-    CELLS_SECONDS; then K4 on a time-split cache (``check_k4_time_split``),
+    CELLS_SECONDS; then qwen2-0.5b's train_4k step and remat on against
+    off (``cells_train_qwen2``) within CELLS_QWEN_SECONDS; then K4 on a
+    time-split cache (``check_k4_time_split``),
     the decode_32k, prefill_32k and GNN cells, within CELLS_SERVING_SECONDS
     more.  Frees all it holds."""
     t0 = time.monotonic()
@@ -3850,6 +4009,12 @@ def cells_phase(seed: int, dev, gen) -> dict:
         line["train_serve_seconds"] = time.monotonic() - t0
         if line["train_serve_seconds"] > CELLS_SECONDS:
             fail(f"cells: took {line['train_serve_seconds']:.1f} s, past {CELLS_SECONDS} s")
+        t1 = time.monotonic()
+        line["qwen2_train_4k"] = cells_train_qwen2(seed, dev, gen, mesh, line["launches"])
+        line["qwen2_train_4k_seconds"] = time.monotonic() - t1
+        if line["qwen2_train_4k_seconds"] > CELLS_QWEN_SECONDS:
+            fail(f"cells: qwen2-0.5b train_4k took {line['qwen2_train_4k_seconds']:.1f} s, "
+                 f"past {CELLS_QWEN_SECONDS} s")
         t1 = time.monotonic()
         line["k4_time_split"] = check_k4_time_split(seed, gen, dev)
         for key, fn in (("qwen2_decode_32k", cells_decode),
@@ -3971,7 +4136,7 @@ def cell_roofline(cell, specs: tuple | None, steps_ms: dict[str, float], launche
 
 
 def roofline_phase(cells_line: dict) -> dict:
-    """The cells phase's three training and serving steps and its
+    """The cells phase's four training and serving steps and its
     decode_32k step counted (``roofline.analysis``) in a fake world of one
     rank on a (1, 1) mesh of the card's device, at the sizes the phase ran,
     and held to the steps it measured (``roofline_gate``); fails past
@@ -4008,6 +4173,15 @@ def roofline_phase(cells_line: dict) -> dict:
             cell, (cell.args[0], cell.args[1], syn.lm_specs(cfg, CELLS_LM_BATCH, CELLS_LM_SEQ)),
             {"dtensor": moe["step_ms"]["sharded"], "plain": moe["step_ms"]["unsharded"]},
             {}, {}, moe["max_memory_allocated_gb"])
+        qwen = cells_line["qwen2_train_4k"]
+        arch, shape = CELLS_QWEN
+        cfg = configs.get(arch).config
+        cell = steps_lib.build_cell(arch, shape, mesh)
+        cell = dataclasses.replace(cell, model_flops=costs.lm_model_flops(
+            cfg, qwen["batch"][0] * qwen["batch"][1], train=True))
+        line["qwen2_train_4k"] = cell_roofline(
+            cell, (cell.args[0], cell.args[1], syn.lm_specs(cfg, *qwen["batch"])),
+            qwen["step_ms"], {}, {}, qwen["max_memory_allocated_gb"]["plain"])
         dec = cells_line["qwen2_decode_32k"]
         arch, shape = CELLS_DECODE
         cfg = configs.get(arch).config

@@ -8,7 +8,7 @@ from repro_torch.models.lm import LMConfig
 CONFIG = LMConfig(
     name="granite-moe-1b-a400m", n_layers=24, d_model=1024, n_heads=16,
     n_kv_heads=8, d_ff=512, vocab=49155, head_dim=64,
-    n_experts=32, top_k=8, dtype="bfloat16",
+    n_experts=32, top_k=8, dtype="bfloat16", remat=True,
 )
 
 SMOKE = LMConfig(

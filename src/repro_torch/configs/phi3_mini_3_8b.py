@@ -8,6 +8,7 @@ from repro_torch.models.lm import LMConfig
 CONFIG = LMConfig(
     name="phi3-mini-3.8b", n_layers=32, d_model=3072, n_heads=32,
     n_kv_heads=32, d_ff=8192, vocab=32064, head_dim=96, dtype="bfloat16",
+    remat=True,
 )
 
 SMOKE = LMConfig(

@@ -9,7 +9,7 @@ from repro_torch.models.lm import LMConfig
 CONFIG = LMConfig(
     name="qwen2-0.5b", n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
     d_ff=4864, vocab=151936, head_dim=64, qkv_bias=True, tie_embeddings=True,
-    dtype="bfloat16",
+    dtype="bfloat16", remat=True,
 )
 
 SMOKE = LMConfig(

@@ -9,7 +9,7 @@ from repro_torch.models.lm import LMConfig
 CONFIG = LMConfig(
     name="qwen3-moe-30b-a3b", n_layers=48, d_model=2048, n_heads=32,
     n_kv_heads=4, d_ff=768, vocab=151936, head_dim=128,
-    n_experts=128, top_k=8, dtype="bfloat16",
+    n_experts=128, top_k=8, dtype="bfloat16", remat=True,
 )
 
 SMOKE = LMConfig(

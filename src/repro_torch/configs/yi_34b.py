@@ -8,6 +8,7 @@ from repro_torch.models.lm import LMConfig
 CONFIG = LMConfig(
     name="yi-34b", n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8,
     d_ff=20480, vocab=64000, head_dim=128, dtype="bfloat16",
+    remat=True,
 )
 
 SMOKE = LMConfig(

@@ -18,6 +18,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import flags
 from repro_torch.kernels import ops
@@ -67,6 +68,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor) ->
 # --------------------------------------------------------------- full attn
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)``, under activation checkpointing while grad is enabled
+    (autograd keeps the arguments; the backward runs ``fn`` again), else
+    plainly.  ``fn`` draws no random numbers, so no RNG state is kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _kv_step(qi: torch.Tensor, kj: torch.Tensor, vj: torch.Tensor, m: torch.Tensor,
+             l: torch.Tensor, acc: torch.Tensor, q0: int, k0: int, causal: bool):
+    """One KV chunk of ``flash_sdpa``'s online softmax: qi (b, h, g, qc, d)
+    at query rows q0.., kj/vj (b, h, kc, d) at key rows k0..; the carry
+    (m, l, acc) in, the carry out."""
+    qc, kc = qi.shape[-2], kj.shape[-2]
+    sij = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj).float() * (1.0 / qi.shape[-1] ** 0.5)
+    if causal:
+        valid = (q0 + torch.arange(qc, device=qi.device))[:, None] >= \
+            (k0 + torch.arange(kc, device=qi.device))[None, :]
+        sij = torch.where(valid, sij, torch.full_like(sij, NEG_INF))
+    m_new = torch.maximum(m, sij.amax(-1))
+    p = torch.exp(sij - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhgqk,bhkd->bhgqd", p.to(vj.dtype), vj).float()
+    return m_new, l, acc
+
+
+def _q_chunk(qi: torch.Tensor, kr: torch.Tensor, vr: torch.Tensor, q0: int,
+             causal: bool) -> torch.Tensor:
+    """``flash_sdpa``'s whole KV loop for one query chunk qi (b, h, g, qc,
+    d) at rows q0.. against kr/vr (nk, b, h, kc, d): its output, in qi's
+    dtype; each KV step ``checkpointed``."""
+    b, hkv, g, qc, d = qi.shape
+    kc = kr.shape[-2]
+    m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32, device=qi.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, qc, d), dtype=torch.float32, device=qi.device)
+    for jk in range(kr.shape[0]):
+        m, l, acc = checkpointed(_kv_step, qi, kr[jk], vr[jk], m, l, acc, q0, jk * kc, causal)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(qi.dtype)
+
+
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                q_chunk: int = 256, kv_chunk: int = 512) -> torch.Tensor:
     """Chunked attention with an online softmax: peak score memory is
@@ -75,7 +120,15 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     float32; each chunk's probabilities are cast to v's dtype for the
     product with v, as the JAX package's ``flash_sdpa`` does.  Under
     ``flags.unrolled_scans()`` (the accounting tools) the chunks are
-    ``flags.ACCOUNTING_FLASH_CHUNKS``."""
+    ``flags.ACCOUNTING_FLASH_CHUNKS``.
+
+    With grad enabled, both loop bodies are checkpointed, as the
+    reference's ``jax.checkpoint`` of ``q_body`` and ``kv_body``: autograd
+    keeps q, k and v (each chunk a view of them) and no chunk's scores; the
+    backward runs a query chunk's KV loop again, keeping each step's carry
+    (m, l, acc), then each step again for its gradient, so each chunk
+    pair's scores are computed three times (four in a checkpointed layer).
+    The bits are those of the loop without checkpoints."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -83,31 +136,10 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
     qc, kc = min(q_chunk, s), min(kv_chunk, t)
     if s % qc or t % kc:
         raise ValueError(f"S={s} and T={t} must be multiples of the chunks {qc}, {kc}")
-    scale = 1.0 / d ** 0.5
     qr = q.reshape(b, s // qc, qc, hkv, g, d).permute(1, 0, 3, 4, 2, 5)   # (nq, b, h, g, qc, d)
     kr = k.reshape(b, t // kc, kc, hkv, d).permute(1, 0, 3, 2, 4)         # (nk, b, h, kc, d)
     vr = v.reshape(b, t // kc, kc, hkv, d).permute(1, 0, 3, 2, 4)
-    q_off = torch.arange(qc, device=q.device)
-    k_off = torch.arange(kc, device=q.device)
-    outs = []
-    for iq in range(s // qc):
-        qi = qr[iq]
-        m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((b, hkv, g, qc, d), dtype=torch.float32, device=q.device)
-        for jk in range(t // kc):
-            sij = torch.einsum("bhgqd,bhkd->bhgqk", qi, kr[jk]).float() * scale
-            if causal:
-                valid = (iq * qc + q_off)[:, None] >= (jk * kc + k_off)[None, :]
-                sij = torch.where(valid, sij, torch.full_like(sij, NEG_INF))
-            m_new = torch.maximum(m, sij.amax(-1))
-            p = torch.exp(sij - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(v.dtype), vr[jk]).float()
-            m = m_new
-        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+    outs = [checkpointed(_q_chunk, qr[iq], kr, vr, iq * qc, causal) for iq in range(s // qc)]
     out = torch.stack(outs)                                               # (nq, b, h, g, qc, d)
     return out.permute(1, 0, 4, 2, 3, 5).reshape(b, s, hq, d)
 

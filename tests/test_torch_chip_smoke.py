@@ -349,6 +349,47 @@ def test_cells_launch_check_refuses_an_off_by_one_count(kernel, off):
         chip_smoke.expect_cell_launches("step", bad, one)
 
 
+def _lm_step():
+    """(launches, loss pair, parameter pair, AdamW pair) of two equal
+    steps: the qwen2 train_4k gate's arguments."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32)).to(torch.bfloat16)
+    params = {"['embed']": w, "['layers'][0]['ln1']['scale']": torch.ones(4, dtype=torch.bfloat16)}
+    state = {"['mu']['embed']": torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32)),
+             "['count']": torch.tensor(1, dtype=torch.int32)}
+    loss = torch.tensor(11.93)
+    clone = lambda t: {k: v.clone() for k, v in t.items()}   # noqa: E731
+    return (dict.fromkeys(chip_smoke.KERNELS, 0), (loss.clone(), loss),
+            (clone(params), params), (clone(state), state))
+
+
+def test_lm_train_gate_passes_two_equal_steps():
+    launches, loss, params, state = _lm_step()
+    res = chip_smoke.lm_train_gate("qwen2", launches, loss, params, state)
+    assert res["params"]["bit_equal"] == 2 and res["opt_state"]["bit_equal"] == 2
+
+
+@pytest.mark.parametrize("fault", ["weight_one_ulp", "moment_off", "loss_one_ulp",
+                                   "missing_leaf", "a_kernel_launched"])
+def test_lm_train_gate_refuses_a_step_that_differs_or_launches(fault):
+    """A bf16 weight one ulp off, an AdamW moment moved by a step's size, a
+    loss one ulp off, a leaf lost, a K4 launch in a training step: refused."""
+    launches, loss, params, state = _lm_step()
+    if fault == "weight_one_ulp":
+        w = params[0]["['embed']"]
+        w[2, 1] = torch.nextafter(w[2, 1], torch.tensor(np.inf, dtype=torch.bfloat16))
+    elif fault == "moment_off":
+        state[0]["['mu']['embed']"][0, 0] += 3e-4
+    elif fault == "loss_one_ulp":
+        loss = (torch.nextafter(loss[0], torch.tensor(np.inf)), loss[1])
+    elif fault == "missing_leaf":
+        del state[0]["['count']"]
+    else:
+        launches["decode_attention"] = 1
+    with pytest.raises(SystemExit, match="outside|leaves|loss|launched"):
+        chip_smoke.lm_train_gate("qwen2", launches, loss, params, state)
+
+
 # ----------------------------------------------------------- the lm_moe gates
 
 

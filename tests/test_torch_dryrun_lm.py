@@ -13,6 +13,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from torch_reference_cells import built_cells, reference_cells  # noqa: F401  (a fixture)
 from repro_torch import configs
+from repro_torch.configs import registry
 from repro_torch.core import costs
 from repro_torch.launch import dryrun
 from test_torch_dryrun import check_record
@@ -43,3 +44,25 @@ def test_dryrun_counts_an_lm_train_cell(arch, shape, mesh8, reference_cells):
     check_record(rec, arch, shape, want)
     assert rec["kernels"] == {}                      # no hand-written kernel in an LM step
     assert sum(rec["roofline"]["collective_bytes"].values()) > 0
+
+
+@pytest.mark.parametrize("arch,shape", LM_CELLS)
+def test_remat_lowers_an_lm_train_cells_peak(arch, shape, mesh8, monkeypatch):
+    """The smoke ``train_4k`` cell at two layers with ``remat`` and without:
+    the peak per rank is lower with it, and the recomputed forward is
+    counted in the backward (more FLOPs and bytes, the layers' collectives
+    issued again), while ``model_flops`` stays."""
+    spec = registry.get(arch)
+    recs = {}
+    for on in (False, True):
+        monkeypatch.setitem(registry._REGISTRY, arch, dataclasses.replace(
+            spec, smoke_config=dataclasses.replace(spec.smoke_config, remat=on)))
+        recs[on] = dryrun.run_cell(arch, shape, mesh8, "test_2x4", smoke=True,
+                                   layers_override=2, verbose=False)
+    on, off = recs[True], recs[False]
+    assert on["memory"]["peak_bytes_per_device"] < off["memory"]["peak_bytes_per_device"]
+    assert on["roofline"]["flops"] > off["roofline"]["flops"]
+    assert on["roofline"]["bytes_accessed"] > off["roofline"]["bytes_accessed"]
+    assert sum(on["roofline"]["collective_bytes"].values()) > \
+        sum(off["roofline"]["collective_bytes"].values())
+    assert on["roofline"]["model_flops"] == off["roofline"]["model_flops"]

@@ -234,3 +234,26 @@ def test_entry_points_need_a_device_or_a_gpu():
         lm.init(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_caches(cfg, 1, 4)
+
+
+def test_chunk_nll_picks_the_gathered_bits():
+    """The cross-entropy chunk picks each row's label by a mask and a sum
+    over the vocabulary: the loss and every gradient the same bits as with
+    ``gather``."""
+    cfg = configs.get("qwen2-0.5b").smoke_config
+    params = lm.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
+
+    def gathered(p, x_):
+        logp = torch.log_softmax(lm._unembed(p, cfg, x_).float(), dim=-1)
+        return -logp.gather(-1, labels.long()[..., None])[..., 0].sum()
+
+    runs = []
+    for fn in (lambda p, x_: lm._chunk_nll(p, cfg, x_, labels), gathered):
+        loss, grads = value_and_grad(lambda a, _: fn(a["p"], a["x"]), {"p": params, "x": x}, None)
+        runs.append((loss, dict(leaves_with_paths(grads))))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][k]), k

@@ -19,6 +19,7 @@
   ``unrolled_scans()`` restores the flag, and under it ``flash_sdpa`` walks
   the accounting chunks, with the same FLOPs and values."""
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro import flags as jax_flags
 from repro.roofline import analysis as jax_analysis
 from repro_torch import configs, flags
+from repro_torch.configs import registry
 from repro_torch.data import synthetic as syn
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import cin as cin_kernel
@@ -310,7 +312,18 @@ def test_dry_run_counts_at_two_and_three_layers_extrapolate_to_four():
     """The dry run's L = 2, 3 extrapolation equals a direct count at L = 4
     in every roofline term and every memory key.  From L = 1 the peak is
     not linear at this size: with the accounting flash chunks it grows by
-    18.62 GB from L = 1 to 2 and by 17.95 GB a layer after."""
+    1.36 GB from L = 1 to 2 and by 0.61 GB a layer after."""
+    got, want = _lm_extrapolation(2, 4)
+    assert got["memory"] == want["memory"]
+
+
+def test_dry_run_extrapolation_to_four_holds_with_remat(monkeypatch):
+    """The same with ``remat``: each layer checkpointed, the peak grows by
+    its input alone (0.25 MB a layer at this size), and L = 2, 3 still give
+    L = 4 exactly."""
+    spec = registry.get("phi3-mini-3.8b")
+    monkeypatch.setitem(registry._REGISTRY, spec.arch_id, dataclasses.replace(
+        spec, smoke_config=dataclasses.replace(spec.smoke_config, remat=True)))
     got, want = _lm_extrapolation(2, 4)
     assert got["memory"] == want["memory"]
 
