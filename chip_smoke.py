@@ -39,7 +39,8 @@ What it does, one JSON line per phase:
                  curve as the accelerator (simulated, 40 executors)
   live           DLRM-RMC2 at its published size served live on the card by
                  one worker (cluster.live_node, the batch knob sched tuned
-                 with the card, buckets to 1,024) and its simulated twin on
+                 with the card, no smaller than the static baseline's,
+                 buckets to 1,024) and its simulated twin on
                  the curve calibrated through the runtime, both under
                  cluster.drive_fleet on one trace: capacity under the SLA on
                  a probe ladder (live/sim ratio gated to [0.5, 2]), p50/p95
@@ -153,7 +154,13 @@ What it does, one JSON line per phase:
                  run's peak beside max_memory_allocated; each kernel the
                  step launched must be in the count as often and with its
                  work(); then the decode_32k cell's step the same way (K4
-                 at every slot); within 300 s
+                 at every slot); within 300 s; then its fit entry: the dry
+                 run of yi-34b x train_4k on the single-pod fake world (256
+                 ranks) and of qwen2-0.5b x train_4k on the multi-pod one
+                 (512), published size, each peak a rank at or below the
+                 card's total_memory less FIT_MARGIN_BYTES, and qwen2-0.5b's
+                 train_4k count at one layer on the single-pod mesh at or
+                 below FIT_QWEN_L1_FLOPS_MAX; within FIT_SECONDS more
   lm_generate    qwen2-0.5b at its published size (bf16, seeded weights):
                  prefill of 8 prompts of 512 tokens into 1,024-slot caches,
                  then 32 teacher-forced decode steps, each held against the
@@ -211,7 +218,9 @@ no result line:
   gnn          the gnn phase
   dist         the dist phase
   cells        the cells phase
-  roofline     the cells phase, then the roofline line of its steps
+  roofline     the cells phase, then the roofline line of its steps and
+               its fit entry
+  fit          the roofline phase's fit entry alone
   lm_moe       the lm_moe phase
   remote       the remote phase
   k2_timings   K2 timed at the DLRM shapes
@@ -234,6 +243,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import math
 import os
 import shutil
 import socket
@@ -1578,7 +1588,8 @@ def live(seed: int, dev, params, cfg, batch: int, card_curve,
     ``benchmarks/live_parity.py``; then two live DLRM-RMC1 nodes, one on
     the card and one on the host CPU, behind ``hetero`` and
     ``round_robin``.  ``batch`` is the knob the sched phase tuned for RMC2
-    with the card, ``card_curve`` the log-linear card curve it measured."""
+    with the card (``main`` floors it at the static baseline's),
+    ``card_curve`` the log-linear card curve it measured."""
     t_phase = time.monotonic()
     sla = SLA_TARGETS[cfg.name].medium_ms
     model = LiveModel(params, cfg, seed, dev)
@@ -4140,7 +4151,7 @@ def roofline_phase(cells_line: dict) -> dict:
     decode_32k step counted (``roofline.analysis``) in a fake world of one
     rank on a (1, 1) mesh of the card's device, at the sizes the phase ran,
     and held to the steps it measured (``roofline_gate``); fails past
-    ROOFLINE_SECONDS."""
+    ROOFLINE_SECONDS.  Then ``fit_entry``."""
     t0 = time.monotonic()
     rmc2, xdfm, moe = (cells_line[k] for k in ("rmc2_train_batch", "xdeepfm_serve_p99",
                                                 "granite_moe_train_4k"))
@@ -4197,7 +4208,102 @@ def roofline_phase(cells_line: dict) -> dict:
     line["seconds"] = time.monotonic() - t0
     if line["seconds"] > ROOFLINE_SECONDS:
         fail(f"roofline: took {line['seconds']:.1f} s, past {ROOFLINE_SECONDS} s")
+    line["fit"] = fit_entry()
     return line
+
+
+# The dry run's peak a rank is gated below the card's memory less this
+# margin: what the count does not see, the CUDA context with cuBLAS's and
+# NCCL's workspaces (about 1 GB) and the caching allocator's rounding and
+# fragmentation (a whole run's measured peaks read 0.9 GB above a phase's
+# own), with room to spare.
+FIT_MARGIN_BYTES = 4 * 2**30
+FIT_SECONDS = 240.0
+# the LM train_4k cells that came nearest a card's memory, and their mesh
+FIT_CELLS = (("yi-34b", "train_4k", "single"), ("qwen2-0.5b", "train_4k", "multi"))
+# qwen2-0.5b's train_4k at one layer on the (16, 16) mesh, counted as it was
+# before activation checkpointing (no remat, no flash_sdpa checkpoints): the
+# card machine's torch took the tied unembedding's gradient over the whole
+# vocabulary on every rank, 25.17e12 FLOPs a rank; over each rank's own rows
+# and vocabulary shard it is under this
+FIT_QWEN_L1_FLOPS_MAX = 10e12
+
+
+@contextlib.contextmanager
+def registry_config(arch: str, smoke: bool, **changes):
+    """The registry's config of ``arch`` (its smoke config with ``smoke``)
+    with ``changes`` within: the cell builder reads the registry."""
+    spec = configs.registry.get(arch)
+    which = "smoke_config" if smoke else "config"
+    configs.registry._REGISTRY[arch] = dataclasses.replace(
+        spec, **{which: dataclasses.replace(getattr(spec, which), **changes)})
+    try:
+        yield
+    finally:
+        configs.registry._REGISTRY[arch] = spec
+
+
+def fit_entry(*, smoke: bool = False, device: str = "cuda", total: int | None = None) -> dict:
+    """The dry run (``launch/dryrun.py``, fake tensors on ``device``, published
+    size unless ``smoke``) of each of FIT_CELLS on its production mesh's
+    fake world (256 ranks single-pod, 512 multi-pod), each peak a rank gated
+    at or below ``total`` (the card's memory) less FIT_MARGIN_BYTES; and
+    qwen2-0.5b's train_4k counts on the single-pod mesh: as published, what
+    it counts outside its layers (one layer's count twice less two layers')
+    below what the whole vocabulary's gradient over a data rank's rows
+    alone costs; at one layer without activation checkpointing (as the
+    count was taken before it), at or below FIT_QWEN_L1_FLOPS_MAX.  Fails
+    past FIT_SECONDS."""
+    t0 = time.monotonic()
+    if total is None:
+        total = torch.cuda.get_device_properties(0).total_memory
+    usable = total - FIT_MARGIN_BYTES
+    out = {"total_memory_bytes": total, "margin_bytes": FIT_MARGIN_BYTES,
+           "usable_bytes": usable, "cells": {}}
+    for arch, shape, which in FIT_CELLS:
+        mesh_name, multi = dryrun.MESHES[which]
+        with dryrun.fake_world(math.prod(mesh_lib.MULTI_POD if multi else mesh_lib.SINGLE_POD)):
+            mesh = mesh_lib.make_production_mesh(multi_pod=multi, device=device)
+            rec = dryrun.run_cell(arch, shape, mesh, mesh_name, smoke=smoke, verbose=False)
+        peak = rec["memory"]["peak_bytes_per_device"]
+        out["cells"][f"{arch}×{shape}×{mesh_name}"] = {
+            "peak_bytes_per_device": peak, "peak_gb": peak / 1e9,
+            "collective_bytes": rec["roofline"]["collective_bytes"],
+            "flops": rec["roofline"]["flops"], "count_s": rec["count_s"]}
+        if not peak <= usable:
+            fail(f"fit: {arch}×{shape} on {mesh_name} holds {peak / 1e9:.2f} GB a rank, past "
+                 f"the card's {total / 1e9:.2f} GB less {FIT_MARGIN_BYTES / 1e9:.2f}")
+    arch, shape = "qwen2-0.5b", "train_4k"
+    cfg = getattr(configs.get(arch), "smoke_config" if smoke else "config")
+    with dryrun.fake_world(math.prod(mesh_lib.SINGLE_POD)):
+        mesh = mesh_lib.make_production_mesh(device=device)
+
+        def flops(layers: int) -> float:
+            cell = steps_lib.build_cell(arch, shape, mesh, smoke=smoke, layers_override=layers)
+            return dryrun.count_cell(cell, memory=False)["roofline"].flops
+
+        out["qwen2_l1_flops"], out["qwen2_l2_flops"] = flops(1), flops(2)
+        with registry_config(arch, smoke, remat=False), flash_checkpoints_off():
+            out["qwen2_l1_flops_no_checkpoints"] = flops(1)
+    # the count outside the layers (the lookup, the final norm, the
+    # unembedding and cross-entropy, AdamW) against what the whole
+    # vocabulary's gradient over a data rank's rows alone would cost
+    out["qwen2_outside_layers_flops"] = 2 * out["qwen2_l1_flops"] - out["qwen2_l2_flops"]
+    lm_shape = configs.LM_SHAPES[shape]
+    rows = lm_shape.global_batch // mesh_lib.SINGLE_POD[0] * lm_shape.seq_len
+    out["qwen2_whole_vocab_grad_flops"] = 2.0 * cfg.vocab * rows * cfg.d_model
+    if not out["qwen2_outside_layers_flops"] < out["qwen2_whole_vocab_grad_flops"]:
+        fail(f"fit: qwen2-0.5b train_4k counts {out['qwen2_outside_layers_flops']:.4g} FLOPs a "
+             f"rank outside its layers, not below the whole vocabulary's gradient alone "
+             f"({out['qwen2_whole_vocab_grad_flops']:.4g})")
+    if not out["qwen2_l1_flops_no_checkpoints"] <= FIT_QWEN_L1_FLOPS_MAX:
+        fail(f"fit: qwen2-0.5b train_4k at one layer without checkpoints counts "
+             f"{out['qwen2_l1_flops_no_checkpoints']:.4g} FLOPs a rank, past "
+             f"{FIT_QWEN_L1_FLOPS_MAX:.4g}")
+    out["seconds"] = time.monotonic() - t0
+    if out["seconds"] > FIT_SECONDS:
+        fail(f"fit: took {out['seconds']:.1f} s, past {FIT_SECONDS} s")
+    return out
 
 
 def roofline_only(args, dev, gen) -> dict:
@@ -4218,6 +4324,7 @@ ONLY = {
     "dist": lambda args, dev, gen: dist_phase(args.seed, dev),
     "cells": lambda args, dev, gen: cells_phase(args.seed, dev, gen),
     "roofline": roofline_only,
+    "fit": lambda args, dev, gen: {"phase": "fit", **fit_entry()},
     "k2_timings": lambda args, dev, gen: {
         "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
     "bwd_timings": lambda args, dev, gen: bwd_timings(args.seed, dev, gen),
@@ -4304,11 +4411,17 @@ def main() -> None:
     after(scheduled)
 
     # RMC2 live against its twin, at the knob the sched phase just tuned
-    # with the card and beside the card curve it measured; then everything
-    # the phase held is freed for the LM phases
+    # with the card (no smaller than the static baseline's: the live node
+    # holds the card alone, and a tuned knob of 1, which a bumpy host-CPU
+    # curve can give the climb, turns each production query into ~130
+    # one-item requests and the phase's ladder runs past the script's time
+    # limit) and beside the card curve it measured; then everything the
+    # phase held is freed for the LM phases
     row = next(r for r in scheduled["models"] if r["arch"] == SERVE_ARCH)
     card_curve = TableDeviceModel(list(BUCKETS), [row["card_ms"][b] / 1e3 for b in BUCKETS])
-    lived = live(args.seed, dev, params, cfg, row["with_card"]["batch"], card_curve)
+    lived = live(args.seed, dev, params, cfg,
+                 max(row["with_card"]["batch"], row["static"]["batch"]), card_curve)
+    lived["tuned_batch_size"] = row["with_card"]["batch"]
     after(lived)
     del params, tables
     torch.cuda.empty_cache()

@@ -30,7 +30,7 @@ import re
 from typing import Any, Optional, Union
 
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Placement, Replicate, Shard
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
 from repro_torch.utils import leaves_with_paths
 
@@ -184,3 +184,29 @@ def to_placements(mesh: DeviceMesh, spec: Spec) -> list[Placement]:
                 raise ValueError(f"spec {spec} names axis {a!r}; the mesh has {names}")
             out[names.index(a)] = Shard(i)
     return out
+
+
+# ------------------------------------------------------------ gradients
+
+
+def grad_placements(grad: list[Placement], param: list[Placement]) -> list[Placement]:
+    """Where a parameter's gradient is put as it is made: at the parameter's
+    split on every mesh axis that splits the parameter (a partial sum there
+    is reduce-scattered, a whole gradient cut to the rank's shard), as it
+    came on every other axis (a partial sum over the batch axes stays one
+    until the step adds it up)."""
+    return [p if p.is_shard() else g for g, p in zip(grad, param)]
+
+
+def redistribute_in_order(t: DTensor, placements) -> DTensor:
+    """``t`` at ``placements``, one mesh axis at a time from the last
+    (``model``) to the first, each its own collective: every rank takes
+    the same steps in the same order, whatever the torch version's planner
+    would group (two partial sums reduced in one plan may be reduced in
+    different orders on different ranks)."""
+    cur = list(t.placements)
+    for axis in reversed(range(len(cur))):
+        if cur[axis] != placements[axis]:
+            cur[axis] = placements[axis]
+            t = t.redistribute(t.device_mesh, cur)
+    return t

@@ -173,8 +173,12 @@ def _zero1_pspecs(param_pspecs, params_shape, data_axis: str = "data",
 
 def _settle(grads, params):
     """Each DTensor gradient at its parameter's placements: the partial
-    sums that local gradients were declared as are added up here."""
-    return _walk(lambda _, g, p: g.redistribute(p.device_mesh, p.placements)
+    sums that local gradients were declared as are added up here, one mesh
+    axis at a time in a fixed order (``sharding.redistribute_in_order``).
+    ``train/microbatch.py`` hands the gradients over at their parameters'
+    split already, so what is left is the sum over the batch axes (and
+    over ``model`` for a replicated parameter): one reduction a step."""
+    return _walk(lambda _, g, p: shd.redistribute_in_order(g, p.placements)
                  if isinstance(g, DTensor) else g, grads, params)
 
 

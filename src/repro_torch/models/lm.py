@@ -26,9 +26,10 @@ kernel: ``forward_hidden``'s attention is plain tensor code.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -125,9 +126,16 @@ def _freqs(cfg: LMConfig, device) -> torch.Tensor:
 
 
 def _unembed(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return linear(params["unembed"], x)
+    return _logits(x, _unembedding(params, cfg), cfg.tie_embeddings)
+
+
+def _unembedding(params, cfg: LMConfig) -> torch.Tensor:
+    """The tied embedding (V, d) or the unembedding's weight (d, V)."""
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]["w"]
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor, tied: bool) -> torch.Tensor:
+    return x @ w.T if tied else x @ w
 
 
 def _ffn(layer, cfg: LMConfig, x: torch.Tensor, moe_fn=None):
@@ -146,11 +154,25 @@ def _ffn(layer, cfg: LMConfig, x: torch.Tensor, moe_fn=None):
 
 def _layer_fwd(layer, cfg: LMConfig, x: torch.Tensor, freqs: torch.Tensor, moe_fn=None):
     """One layer on x (B, S, d): (x after it, its MoE aux loss or None)."""
-    x = x + attn_lib.attention(layer["attn"], rms_norm(layer["ln1"], x),
-                               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                               head_dim=cfg.hd, causal=True, freqs=freqs)
+    x = x + _residual(x, attn_lib.attention(layer["attn"], rms_norm(layer["ln1"], x),
+                                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                                            head_dim=cfg.hd, causal=True, freqs=freqs))
     f, aux = _ffn(layer, cfg, rms_norm(layer["ln2"], x), moe_fn)
-    return x + f, aux
+    return x + _residual(x, f), aux
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output y at the residual stream x's placements: on
+    DTensors the rows split over the batch axes, whole over ``model`` (a
+    row-parallel product's partial sum over ``model`` is added up here,
+    Megatron's all-reduce).  Left to DTensor's rules the stream stays a
+    partial sum, the norm keeps it one, and the next product's rule
+    reduce-scatters the activations and gathers the weights whole, by
+    batch or by sequence as the local batch divides the axis (a sequence
+    split ends in a ``_StridedShard`` whose redistribution reads a value)."""
+    if isinstance(y, DTensor) and y.placements != x.placements:
+        return shd.redistribute_in_order(y, x.placements)
+    return y
 
 
 def forward_hidden(params, cfg: LMConfig, tokens: torch.Tensor, *, moe_fn=None):
@@ -188,18 +210,90 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor, *, moe_fn=None) -> torc
 _LOSS_CHUNK = 512       # sequence chunk of the cross-entropy (big-vocab memory)
 
 
+class _VocabNLL(torch.autograd.Function):
+    """Summed next-token NLL of logits (B, S', V_r) over one vocabulary
+    shard, the rank's ids ``v0 .. v0 + V_r``, against labels (B, S'), in
+    float32.  A row whose label lies in the shard picks it (``gather``),
+    any other picks 0.  With ``group`` (a ``(mesh, axis)`` the vocabulary
+    is split over) the ranks' log-sum-exps and picks are gathered over the
+    axis and combined in rank order.  Its backward needs no collective:
+    each rank's logits' gradient is ``softmax − one-hot`` on its own shard,
+    made in one float32 tensor, the same bits as autograd of
+    ``logsumexp(z) − z[label]``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, group):
+        z = logits.float()
+        lse = torch.logsumexp(z, dim=-1)
+        idx = labels.long() - v0
+        mine = (idx >= 0) & (idx < z.shape[-1])
+        idx = idx.clamp(0, z.shape[-1] - 1)
+        picked = torch.where(mine, z.gather(-1, idx[..., None])[..., 0], 0.0)
+        if group is not None:
+            both = _gathered(torch.stack([lse, picked]), group).reshape(-1, 2, *lse.shape)
+            lse, picked = torch.logsumexp(both[:, 0], dim=0), both[:, 1].sum(0)
+        ctx.save_for_backward(logits, lse, idx, mine)
+        return (lse - picked).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mine = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True).sub_(lse[..., None]).exp_().mul_(g)
+        grad.scatter_add_(-1, idx[..., None], torch.where(mine, -g, 0.0)[..., None])
+        return grad.to(logits.dtype), None, None, None
+
+
+def _gathered(t: torch.Tensor, group) -> torch.Tensor:
+    """t of every rank of ``group``'s process group, stacked on dim 0 in rank
+    order (the functional collective DTensor issues, waited on)."""
+    mesh, axis = group
+    pg = mesh.get_group(axis)
+    out = torch.ops._c10d_functional.all_gather_into_tensor(t.contiguous(), pg.size(),
+                                                            pg.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+def _nll_rows(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *, tied: bool,
+              v0: int = 0, group=None) -> torch.Tensor:
+    """The unembedding of x (B, S', d) on the vocabulary w holds (the tied
+    embedding (V_r, d), or the unembedding's (d, V_r)) and ``_VocabNLL``."""
+    return _VocabNLL.apply(_logits(x, w, tied), labels, v0, group)
+
+
 def _chunk_nll(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Summed next-token NLL of hidden states x (B, S', d) against labels (B, S').
 
-    Each row's label is picked by a mask and a sum over the vocabulary: the
-    same bits as ``gather`` (one value and zeros), and on DTensors split by
-    batch its backward stays split.  ``gather``'s backward builds its zeros
-    at the global shape on every rank (DTensor's ``new_zeros`` replicates):
-    (256, 512, 151,936) float32, 79.7 GB a rank, in qwen2-0.5b's
-    ``train_4k`` cell on the single-pod mesh."""
-    logp = torch.log_softmax(_unembed(params, cfg, x).float(), dim=-1)
-    hit = labels.long()[..., None] == torch.arange(logp.shape[-1], device=logp.device)
-    return -torch.where(hit, logp, 0.0).sum(-1).sum()
+    On DTensors the unembedding, the log-sum-exp and the label pick run on
+    each rank's local tensors (``local_map``), at placements set here
+    rather than by DTensor's rules, which differ by torch version: the rows
+    split over every batch axis (``pod`` included), the vocabulary over
+    ``model`` (an unembedding that the sharding rules split by its hidden
+    dim, granite's vocabulary of 49,155 on 16 ranks, is cut by vocabulary
+    first: DTensor's shards of ⌈V / m⌉ ids).  Each rank's logits are
+    (B_r, S', V / m), and the weight's gradient is made over the rank's
+    own rows and vocabulary shard, a partial sum over the batch axes only.
+    On one rank the local function is the plain step's code."""
+    tied, w = cfg.tie_embeddings, _unembedding(params, cfg)
+    if not isinstance(x, DTensor):
+        return _nll_rows(x, w, labels, tied=tied)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    model = names.index("model") if "model" in names else None
+    vdim = 0 if tied else 1
+
+    def per_axis(on_model, elsewhere):
+        return tuple(on_model if axis == model else elsewhere for axis in range(mesh.ndim))
+
+    rows, vocab = per_axis(Replicate(), Shard(0)), per_axis(Shard(vdim), Replicate())
+    m = 1 if model is None else mesh.size(model)
+    v0 = 0 if m == 1 else mesh.get_local_rank(model) * -(-w.shape[vdim] // m)
+    local = functools.partial(_nll_rows, tied=tied, v0=v0,
+                              group=None if m == 1 else (mesh, model))
+    return local_map(local, out_placements=list(per_axis(Replicate(), Partial())),
+                     in_placements=(rows, vocab, rows),
+                     in_grad_placements=(per_axis(Partial(), Shard(0)),
+                                         per_axis(Shard(vdim), Partial()), rows),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w, labels)
 
 
 def loss_fn(params, cfg: LMConfig, batch: dict, *, moe_fn=None) -> torch.Tensor:

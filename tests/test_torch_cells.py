@@ -15,7 +15,8 @@ Numbers: one module-scoped gloo world of 4 CPU ranks (``tests/
 torch_dist_ranks.py::cells_rank``) runs each case's cell on DTensors from
 the JAX package's weights (``compat``) and the same numpy batch; the test
 holds what the step gives against the port's step on plain tensors and
-against the JAX package's single-device loss or output.  Losses within
+against the JAX package's single-device loss or output (and, for the LM
+cases at two microbatches, ``jax.grad`` of its loss).  Losses within
 rtol 1e-5 (recommendation) and 2e-4 (the LMs, the reference's own
 tolerance in tests/test_distributed.py); parameters and optimiser state
 after one step within the gradient gate's TOL = 2e-5 (|got − want| ≤
@@ -24,7 +25,8 @@ K2) training with column-sharded tables on (2, 2); xDeepFM with
 ``embed_dim`` 6, row-sharded, on (1, 4); MIND retrieval and AutoInt
 serving on (2, 2); granite-moe through ``make_sharded_moe`` on (1, 4) and
 (2, 2); qwen2, whose 7 query heads and 1 KV head do not divide the model
-axis, on (2, 2).  On (2, 2) each data shard of granite-moe dispatches its
+axis, on (2, 2); yi, whose do, on (2, 2) at 1,024 tokens a sequence.
+On (2, 2) each data shard of granite-moe dispatches its
 own tokens at its own capacity, so its one-device meaning applies the MoE
 layer to each half of the batch apart (in both packages)."""
 import dataclasses
@@ -267,6 +269,10 @@ CASES = [
          shape=LM_TRAIN),
     dict(name="qwen2_train", arch="qwen2-0.5b", family="lm", mesh=(2, 2), shape=LM_TRAIN,
          microbatches=2),
+    # heads that divide the model axis: the dense products split over two
+    # model ranks; 1,024 tokens: two cross-entropy chunks
+    dict(name="yi_train", arch="yi-34b", family="lm", mesh=(2, 2),
+         shape=("train_4k", 1024, 4, "train"), microbatches=2),
 ]
 BY_NAME = {c["name"]: c for c in CASES}
 
@@ -350,8 +356,11 @@ def _one_device(case, inp) -> dict:
     out = {}
     if case.get("microbatches"):
         mloss, mgrads = accumulated_grads(loss_fn, params, batch, case["microbatches"])
+        jgrads = jax.jit(jax.grad(lambda p, b: jax_lm.loss_fn(p, jcfg, b)))(jparams, jbatch)
         out = {"micro_loss": float(mloss),
-               "micro_grads": {p: t.numpy() for p, t in leaves_with_paths(mgrads)}}
+               "micro_grads": {p: t.numpy() for p, t in leaves_with_paths(mgrads)},
+               "jax_grads": {p: t.numpy() for p, t in leaves_with_paths(
+                   compat.from_jax_params(jax.tree.map(np.asarray, jgrads), device="cpu"))}}
     state = opt.init(params)
     new_p, new_o, loss = steps._train_step(loss_fn, opt)(params, state, batch)
     return {**out, "loss": float(loss), "jax_loss": float(jloss),
@@ -393,7 +402,7 @@ def _gate(name: str, got: np.ndarray, want: np.ndarray) -> None:
                                        ("xdeepfm_rows_train", RECSYS_RTOL),
                                        ("granite_train_1x4", LM_RTOL),
                                        ("granite_train_2x2", LM_RTOL),
-                                       ("qwen2_train", LM_RTOL)])
+                                       ("qwen2_train", LM_RTOL), ("yi_train", LM_RTOL)])
 def test_sharded_loss_matches_one_device_and_the_reference(sharded, name, rtol):
     """The port's tests/test_distributed.py pair (xDeepFM at 1e-5, the MoE
     LM at 2e-4) and the other train cells: the sharded loss against the
@@ -404,7 +413,8 @@ def test_sharded_loss_matches_one_device_and_the_reference(sharded, name, rtol):
 
 
 @pytest.mark.parametrize("name", ["xdeepfm_train", "rmc2_train", "xdeepfm_rows_train",
-                                  "granite_train_1x4", "granite_train_2x2", "qwen2_train"])
+                                  "granite_train_1x4", "granite_train_2x2", "qwen2_train",
+                                  "yi_train"])
 def test_sharded_step_matches_one_device(sharded, name):
     """Every optimiser leaf and every parameter after one step, gathered
     whole.  AdamW's first step moves a coordinate by lr·g/(|g| + 1e-8): where
@@ -440,6 +450,28 @@ def test_microbatches_split_each_ranks_shard(sharded):
     assert got["micro_grads"].keys() == one["micro_grads"].keys()
     for p, want in one["micro_grads"].items():
         _gate(f"microbatched grad {p}", got["micro_grads"][p], want)
+
+
+@pytest.mark.parametrize("name", ["qwen2_train", "yi_train"])
+def test_sharded_grads_match_one_device_and_the_reference(sharded, name):
+    """The gradients ``accumulated_grads`` hands over on DTensors (two
+    microbatches on (2, 2)), gathered whole: the tied (qwen2) and untied (yi)
+    unembedding on each rank's rows and vocabulary shard, yi's dense
+    products split over two model ranks.  Against the port's plain
+    gradients (the gate) and ``jax.grad`` of the reference's loss (the LM
+    tolerance of tests/test_torch_lm.py); each weight gradient lies at its
+    parameter's split over ``model``."""
+    got, one = sharded[name]
+    assert got["micro_grads"].keys() == one["jax_grads"].keys()
+    for p, want in one["jax_grads"].items():
+        _gate(f"{name} grad {p}", got["micro_grads"][p], one["micro_grads"][p])
+        np.testing.assert_allclose(got["micro_grads"][p], want, rtol=1e-4, atol=1e-4, err_msg=p)
+    split = 0
+    for p, placed in got["placements"].items():
+        if "Shard" in placed.split(",")[-1]:
+            assert got["micro_placements"][p].split(",")[-1] == placed.split(",")[-1], p
+            split += 1
+    assert split >= 8
 
 
 @pytest.mark.parametrize("name,table,placements", [

@@ -570,3 +570,29 @@ def test_the_gate_holds_a_step_to_its_floor_at_the_distinct_rows():
         with pytest.raises(SystemExit, match="faster than its roofline"):
             chip_smoke.cell_roofline(cell, None, {"plain": probe["floor_ms"] / 1.1}, launched,
                                      want, 0.0, needed)
+
+
+# ------------------------------------------------------------------- fit
+
+
+def test_fit_entry_gates_each_peak_below_the_cards_memory():
+    """The roofline phase's fit entry at smoke size on the CPU (fake worlds
+    of 256 and 512 ranks): it records each cell's dry-run peak and qwen2's
+    counts (outside the layers below the whole vocabulary's gradient; at one
+    layer without checkpoints, fewer FLOPs than with them), passes under a
+    card's memory and refuses a card that holds less than a peak plus the
+    margin."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    out = chip_smoke.fit_entry(smoke=True, device="cpu", total=10**15)
+    assert set(out["cells"]) == {"yi-34b×train_4k×single_pod_16x16",
+                                 "qwen2-0.5b×train_4k×multi_pod_2x16x16"}
+    peaks = [c["peak_bytes_per_device"] for c in out["cells"].values()]
+    assert min(peaks) > 0
+    assert 0 < out["qwen2_l1_flops_no_checkpoints"] <= chip_smoke.FIT_QWEN_L1_FLOPS_MAX
+    assert 0 < out["qwen2_outside_layers_flops"] < out["qwen2_whole_vocab_grad_flops"]
+    assert out["qwen2_l1_flops_no_checkpoints"] <= out["qwen2_l1_flops"] < out["qwen2_l2_flops"]
+    with pytest.raises(SystemExit, match="fit: yi-34b"):
+        chip_smoke.fit_entry(smoke=True, device="cpu",
+                             total=chip_smoke.FIT_MARGIN_BYTES + min(peaks) - 1)

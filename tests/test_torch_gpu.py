@@ -1013,6 +1013,37 @@ def test_recsys_train_cell_on_dtensors_is_its_unsharded_step(nccl_world_of_one):
             assert torch.equal(got[k].to_local().to(want.device), want), k
 
 
+def test_lm_train_cell_on_dtensors_is_its_plain_step(nccl_world_of_one):
+    """qwen2-0.5b's smoke train_4k cell at 4 x 1,024 tokens (two
+    cross-entropy chunks) and two microbatches on a (1, 1) mesh: the step
+    on DTensors, whose weight gradients are put at their parameters' split
+    as they are made and whose unembedding and cross-entropy run on the
+    rank's rows and vocabulary (``local_map``), gives the plain step's bits:
+    the loss, every parameter and every optimiser leaf; no kernel launches."""
+    from repro_torch.launch import steps
+    from repro_torch.utils import leaves_with_paths, tree_map
+    dev = nccl_world_of_one
+    mesh = _one_rank_mesh()
+    cfg = configs.get("qwen2-0.5b").smoke_config
+    cell = steps._lm_cell("qwen2-0.5b", configs.LMShape("train_4k", 1024, 4, "train"), mesh,
+                          smoke=True, n_micro=2)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    state = cell.init_state(params)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in syn.lm_batch(np.random.default_rng(0), cfg, 4, 1024).items()}
+    sharded = cell.place(tree_map(torch.clone, params), tree_map(torch.clone, state), batch)
+    ops.reset_launch_counts()
+    loss_s = cell.fn(*sharded)[2].to_local()
+    loss = cell.fn(params, state, batch)[2]
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0
+    assert bool(torch.isfinite(loss)) and torch.equal(loss_s, loss)
+    for got_tree, want_tree in ((sharded[0], params), (sharded[1], state)):
+        got = dict(leaves_with_paths(got_tree))
+        for k, want in leaves_with_paths(want_tree):
+            assert torch.equal(got[k].to_local(), want), k
+
+
 # ------------------------------------------- accounting on fake CUDA tensors
 
 

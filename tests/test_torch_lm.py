@@ -239,7 +239,8 @@ def test_entry_points_need_a_device_or_a_gpu():
 def test_chunk_nll_picks_the_gathered_bits():
     """The cross-entropy chunk picks each row's label by a mask and a sum
     over the vocabulary: the loss and every gradient the same bits as with
-    ``gather``."""
+    ``gather`` (the chunk is ``logsumexp(z) − z[label]``, its backward
+    written out as ``softmax − one-hot``)."""
     cfg = configs.get("qwen2-0.5b").smoke_config
     params = lm.init(torch.Generator().manual_seed(3), cfg, device="cpu")
     rng = np.random.default_rng(3)
@@ -247,8 +248,8 @@ def test_chunk_nll_picks_the_gathered_bits():
     labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
 
     def gathered(p, x_):
-        logp = torch.log_softmax(lm._unembed(p, cfg, x_).float(), dim=-1)
-        return -logp.gather(-1, labels.long()[..., None])[..., 0].sum()
+        z = lm._unembed(p, cfg, x_).float()
+        return (torch.logsumexp(z, dim=-1) - z.gather(-1, labels.long()[..., None])[..., 0]).sum()
 
     runs = []
     for fn in (lambda p, x_: lm._chunk_nll(p, cfg, x_, labels), gathered):

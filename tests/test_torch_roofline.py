@@ -41,6 +41,7 @@ from repro_torch.kernels import embedding_bag as eb_kernel
 from repro_torch.kernels import interaction as ix_kernel
 from repro_torch.layers import attention
 from repro_torch.launch import dryrun, roofline_sweep, steps
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import recsys
 from repro_torch.roofline import analysis
 
@@ -385,3 +386,19 @@ def test_flash_sdpa_takes_the_accounting_chunks_while_counting():
         wide = attention.flash_sdpa(q, k, v, causal=True)
     torch.testing.assert_close(wide, attention.flash_sdpa(q, k, v, causal=True),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_eight_microbatches_count_on_the_production_mesh():
+    """yi-34b's smoke ``train_4k`` at two layers and eight microbatches on
+    the (16, 16) mesh of a fake world of 256 ranks: two rows a rank a
+    microbatch, fewer than the model axis, which sent the FFN's
+    activations to a sequence split and a ``_StridedShard`` redistribution
+    that read a fake tensor's value (torch 2.13).  With the residual stream
+    at its rule's placements (``models/lm.py::_residual``) it counts."""
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device="cpu")
+        cell = steps.build_cell("yi-34b", "train_4k", mesh, smoke=True, layers_override=2,
+                                n_micro=8)
+        rec = dryrun.count_cell(cell)
+    assert rec["memory"]["peak_bytes_per_device"] > 0
+    assert rec["roofline"].flops > 0

@@ -139,6 +139,8 @@ def cells_rank(rank: int, world: int, rdzv: str, in_path: str, out_dir: str) -> 
                         cell.place(params, None, batch)[2], case["microbatches"])
                 res["micro_loss"] = float(loss.full_tensor())
                 res["micro_grads"] = _full(grads)
+                res["micro_placements"] = {p: str(t.placements)
+                                           for p, t in leaves_with_paths(grads)}
             if cell.kind == "train":
                 state = cell.init_state(params)
                 new_p, new_o, loss = cell.fn(*cell.place(params, copy.deepcopy(state), batch))
