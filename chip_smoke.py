@@ -14,7 +14,10 @@ What it does, one JSON line per phase:
                  dtype sweep of the CPU tests plus the shapes the models
                  give it, and timings at the DLRM-RMC2 (and for K2 also
                  RMC1/RMC3), xDeepFM and qwen2-0.5b shapes (kernel,
-                 bound, plain version, library call)
+                 bound, plain version, library call); K3-bwd at xDeepFM's
+                 layer shapes, B = 512 and 4,096, against its plain version
+                 and float64, the same bits on a second launch, and timed
+                 at B = 512 and 65,536
   parity         forward of every recsys smoke config (paper models and
                  zoo), and prefill + 4 decode steps of every dense LM smoke
                  config, on the card (kernels) against the same weights and
@@ -74,7 +77,10 @@ What it does, one JSON line per phase:
                  forward, backward and optimiser times; K1-bwd and K2-bwd
                  against their plain versions, the same bits on a second
                  launch and under CUDA-graph replay, and timed beside
-                 bound, plain and library versions; then
+                 bound, plain and library versions; then xDeepFM at its
+                 published size, B = 1,024 (K1, K1-bwd, three K3 and three
+                 K3-bwd a step): the same gradient gate, 10 steps, a run
+                 stopped at step 5 and resumed bit for bit; then
                  qwen2-0.5b at its published size (bf16, B = 4, S = 1,024):
                  the chunked loss against the whole one and 3 AdamW steps,
                  no kernel launched.  Frees all it holds
@@ -103,7 +109,9 @@ What it does, one JSON line per phase:
                  train_batch step at its published size and B = 65,536 on
                  DTensors against the same step on plain tensors (loss,
                  every parameter and optimiser leaf the same bits, exactly
-                 one K1, K2, K1-bwd and K2-bwd a step); xDeepFM's serve_p99
+                 one K1, K2, K1-bwd and K2-bwd a step); xDeepFM's
+                 train_batch step the same way at B = 65,536 (one K1 and
+                 K1-bwd, three K3 and K3-bwd a step); xDeepFM's serve_p99
                  step against bulk_forward (the same bits, one K1 and three
                  K3); granite-moe-1b-a400m's train_4k step through
                  make_sharded_moe, 4 x 1,024 tokens, against one plain
@@ -258,6 +266,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.autograd import DeviceType
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -321,7 +330,7 @@ ZOO_BATCHES = (1, 64, 512)                               # 512: RECSYS_SHAPES se
 BULK_ROWS = 65_536              # cut from serve_bulk's 262,144 rows to fit the script's time
 BULK_CHUNK = 16_384            # bulk_forward's default; divides BULK_ROWS, so no rounding
 KERNELS = ("embedding_bag", "dot_interaction", "cin_layer", "decode_attention",
-           "embedding_bag_backward", "dot_interaction_backward")
+           "embedding_bag_backward", "dot_interaction_backward", "cin_layer_backward")
 DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # K4: tests/test_kernels.py's values
 # the logits of a bf16 LM step through K4 against the same step through the
 # plain attention: ||got - want|| / ||want||.  Set between the spread of
@@ -365,6 +374,9 @@ TRAIN_RESUME_AT = 10
 TRAIN_TIMED_STEPS = 5
 TRAIN_CLIP = 10.0
 TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+TRAIN_CIN_ARCH = "xdeepfm"          # K3 and K3-bwd in training, at published size, B = 1,024
+TRAIN_CIN_STEPS = 10
+TRAIN_CIN_RESUME_AT = 5
 # qwen2-0.5b's training steps: S = 2 x lm._LOSS_CHUNK, so the chunked loss
 # runs; chunked and whole sum the same float32 terms in other groupings
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 1024, 3
@@ -387,6 +399,7 @@ DIST_DIR = Path(__file__).resolve().parent / "build" / "dist_smoke"
 # MLP behind the supervisor, buckets to 64, each run HORIZON seconds of
 # trace at half the lockstep-calibrated capacity
 CELLS_TRAIN = ("dlrm-rmc2", "train_batch")       # published size and batch (65,536), not cut
+CELLS_TRAIN_CIN = ("xdeepfm", "train_batch")    # K3 and K3-bwd: published size, B = 65,536
 CELLS_SERVE = ("xdeepfm", "serve_p99")          # published size, B = 512
 CELLS_LM = ("granite-moe-1b-a400m", "train_4k")
 CELLS_LM_BATCH, CELLS_LM_SEQ = 4, 1024          # cut from train_4k's 256 x 4,096
@@ -830,6 +843,172 @@ def time_cin_layer(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
     }
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["prepass_share"] = res["prepass_ms"] / res["kernel_ms"]
+    return res
+
+
+CIN_BWD_BATCHES = (512, 4096, 8192, 65_536)   # K3-bwd's checks: serve_p99's batch, 8x and
+# 16x it (the data gradient cut into runs of h, then not), and train_batch's
+CIN_BWD_PLAIN_MAX = 8192   # the largest batch held against the float32 plain backward whole
+CIN_BWD_CHUNK = 2048       # samples a float64 pass of the plain backward
+CIN_BWD_TIMED = (512, 65_536)          # its timings: serve_p99's and train_batch's
+
+
+def cin_backward_inputs(gen, dev, b: int, f: int, h: int, hn: int, d: int,
+                        dtype=torch.float32) -> tuple:
+    """g (unit normals), x0, xk, w (``cin_inputs``), on the card."""
+    x0, xk, w = cin_inputs(gen, dev, b, f, h, hn, d, dtype)
+    return torch.randn((b, hn, d), generator=gen, device=dev).to(dtype), x0, xk, w
+
+
+def cin_backward_float64(g, x0, xk, w, chunk: int = CIN_BWD_CHUNK) -> tuple[tuple, tuple]:
+    """The plain backward in float64 (``exact``) and the same of the
+    inputs' magnitudes (``mag``: each gradient's Σ|terms|), ``chunk``
+    samples at a time, so that the (B, H·F, D) maps of train_batch's
+    65,536 samples are never held whole: dx0 and dxk are each sample's
+    own, dw the chunks' sum."""
+    outs = []
+    for cast in (torch.Tensor.double, lambda t: t.double().abs()):
+        w64 = cast(w)
+        dx0s, dxks, dw = [], [], torch.zeros_like(w64)
+        for gs, x0s, xks in zip(g.split(chunk), x0.split(chunk), xk.split(chunk)):
+            dx0, dxk, dws = ref.cin_layer_backward(cast(gs), cast(x0s), cast(xks), w64)
+            dx0s.append(dx0)
+            dxks.append(dxk)
+            dw += dws
+        outs.append((torch.cat(dx0s), torch.cat(dxks), dw))
+    return outs[0], outs[1]
+
+
+def check_cin_layer_backward(gen, dev) -> tuple[list, float]:
+    """K3-bwd at each of xDeepFM's layer shapes and each CIN_BWD_BATCHES
+    batch (its plan: the data gradient cut into runs of h at 512 and 4,096,
+    whole from 8,192; the weight gradient's rows in runs at every batch):
+    each gradient against the plain backward up to CIN_BWD_PLAIN_MAX
+    (float32 by ``grad_compare``; bfloat16, at B = 512, the float32 result
+    cast down, within 2e-2 of itself and of the largest value); in float32
+    against float64 within ``cin_kernel.backward_error_bound``'s
+    c · Σ|terms| (``cin_backward_float64``), at train_batch's 65,536 too;
+    and the same bits on a second launch."""
+    checks, main_err = [], 0.0
+    d = configs.get("xdeepfm").config.embed_dim
+    for b in CIN_BWD_BATCHES:
+        for f, h, hn in xdeepfm_cin_shapes():
+            for dtype in (torch.float32, torch.bfloat16) if b == CIN_BWD_BATCHES[0] else (
+                    torch.float32,):
+                g, x0, xk, w = cin_backward_inputs(gen, dev, b, f, h, hn, d, dtype)
+                got = ops.cin_layer_backward(g, x0, xk, w)
+                row = {"shape": [b, f, h, hn, d], "dtype": str(dtype),
+                       "plan": cin_kernel.backward_plan(b, f, h, hn, d)._asdict()}
+                if b <= CIN_BWD_PLAIN_MAX:
+                    want = ref.cin_layer_backward(g, x0, xk, w)
+                    for name, a, e in zip(("dx0", "dxk", "dw"), got, want):
+                        if dtype == torch.float32:
+                            err = grad_compare(f"cin_layer_backward {name} {b, f, h, hn, d}",
+                                               a, e)
+                            main_err = max(main_err, err)
+                        else:
+                            tol = CIN_TOL[dtype]
+                            err = compare(f"cin_layer_backward {name} {b, f, h, hn, d} {dtype}",
+                                          a, e, tol, tol * float(e.float().abs().max()))
+                        row[f"{name}_max_abs_err"] = err
+                    del want
+                if dtype == torch.float32:
+                    exact, mag = cin_backward_float64(g, x0, xk, w)
+                    bound = cin_kernel.backward_error_bound(b, f, h, hn, d)
+                    for name, a, e, m in zip(("dx0", "dxk", "dw"), got, exact, mag):
+                        dev64 = (a.double() - e).abs()
+                        if not bool((dev64 <= bound[name] * m).all()):
+                            fail(f"cin_layer_backward {name} {b, f, h, hn, d}: outside "
+                                 f"{bound[name]:.3e}·Σ|terms| of the float64 value")
+                        row[f"{name}_against_float64_max_abs_err"] = float(dev64.max())
+                        row[f"{name}_largest_share_of_bound"] = float(
+                            (dev64 / (bound[name] * m).clamp_min(1e-300)).max())
+                        del dev64
+                    row["float64_bound"] = {k: f"{v:.4e}*sum|terms|" for k, v in bound.items()}
+                    del exact, mag
+                    again = ops.cin_layer_backward(g, x0, xk, w)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, c) for a, c in zip(again, got)):
+                        fail(f"cin_layer_backward {b, f, h, hn, d}: a second launch gave "
+                             f"other bits")
+                    row["same_bits_on_relaunch"] = True
+                    del again
+                checks.append(row)
+                del got, g, x0, xk, w
+                torch.cuda.empty_cache()
+    return checks, main_err
+
+
+def library_cin_backward(g, x0, xk, w) -> tuple:
+    """The library yardstick of K3-bwd: autograd of the (B·D, H·F)
+    operand materialised and one cuBLAS SGEMM with w (TF32 off), i.e. the
+    forward's yardstick, differentiated."""
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    x0_, xk_, w_ = (t.detach().requires_grad_() for t in (x0, xk, w))
+    a = torch.einsum("bhd,bfd->bdhf", xk_, x0_).reshape(b * d, h * f)
+    out = torch.matmul(a, w_)
+    return torch.autograd.grad(out, (x0_, xk_, w_), g.transpose(1, 2).reshape(b * d, n))
+
+
+def time_cin_layer_backward(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
+    """K3-bwd at one layer's shape.  B = 512: CUDA-graph replays over four
+    rotating input sets (w one matrix), beside the plain backward (graph
+    replays too) and the library yardstick (eager calls: autograd inside).
+    B = 65,536: eager calls on the device's clock (a
+    call is tens of ms), no plain version (its two (B, H·F, D) float32
+    tensors, P and the maps, are 40.9 GB at K = 7,800), the library
+    yardstick where its four
+    (B·D, H·F) float32 tensors fit the card's free memory (else null, and
+    why).  The bound: float32 on the CUDA cores (``backward_work``)."""
+    big = b > CIN_BWD_TIMED[0]
+    n_sets = 1 if big else 4
+    sets = [cin_backward_inputs(gen, dev, b, f, h, hn, d) for _ in range(n_sets)]
+    w = sets[0][3]
+    work = cin_kernel.backward_work(b, f, h, hn, d, 4)
+
+    def kernel(i):
+        g, x0, xk, _ = sets[i % n_sets]
+        return ops.cin_layer_backward(g, x0, xk, w)
+
+    def plain(i):
+        g, x0, xk, _ = sets[i % n_sets]
+        return ref.cin_layer_backward(g, x0, xk, w)
+
+    def library(i):
+        g, x0, xk, _ = sets[i % n_sets]
+        return library_cin_backward(g, x0, xk, w)
+
+    res = {"shape": [b, f, h, hn, d], "flops": work[0]["fp32"], "bytes": work[1],
+           "plan": cin_kernel.backward_plan(b, f, h, hn, d)._asdict(),
+           "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
+           "bound_of": "float32 on the CUDA cores at 67 TFLOP/s, or bytes at 3.35 TB/s",
+           "tf32x3_bound_ms": 3 * work[0]["fp32"] / analysis.PEAKS["tf32"] * 1e3}
+    if big:
+        res["kernel_ms"] = call_ms(kernel, n_iter=3, warmup=1)
+        res["plain_ms"] = None
+        res["plain_note"] = (f"not timed: the plain backward's two (B, H·F, D) float32 "
+                             f"tensors are {2 * b * h * f * d * 4 / 1e9:.1f} GB")
+        # the operand, its gradient and the einsum's two copies of that gradient
+        # (an out-of-memory error at 59 GB allocated showed the fourth)
+        need = 4 * b * d * h * f * 4
+        free = torch.cuda.mem_get_info(dev)[0]
+        if need < 0.9 * free:
+            res["library_ms"] = call_ms(library, n_iter=2, warmup=1)
+        else:
+            res["library_ms"] = None
+            res["library_note"] = (f"not timed: its four (B·D, H·F) float32 tensors, "
+                                   f"{need / 1e9:.1f} GB, do not fit 0.9 of the card's "
+                                   f"{free / 1e9:.1f} GB free")
+    else:
+        res["kernel_ms"] = device_ms(kernel)
+        res["kernel_call_ms"] = call_ms(kernel)
+        res["plain_ms"] = device_ms(plain)
+        res["library_ms"] = call_ms(library)
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    res["tf32x3_share_of_bound"] = res["tf32x3_bound_ms"] / res["kernel_ms"]
+    del sets
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2474,19 +2653,38 @@ class _PlainDot(torch.autograd.Function):
         return ctx.bwd(grad.double(), feats.double()).to(feats.dtype), None
 
 
+class _PlainCin(torch.autograd.Function):
+    """The CIN layer's plain forward, and ``bwd`` in float64 as its
+    backward, each gradient cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x0, xk, w, bwd):
+        ctx.save_for_backward(x0, xk, w)
+        ctx.bwd = bwd
+        return ref.cin_layer(x0, xk, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x0, xk, w = ctx.saved_tensors
+        dx0, dxk, dw = ctx.bwd(grad.double(), x0.double(), xk.double(), w.double())
+        return dx0.to(x0.dtype), dxk.to(xk.dtype), dw.to(w.dtype), None
+
+
 @contextlib.contextmanager
-def plain_backward(k1_bwd=ref.embedding_bag_backward, k2_bwd=ref.dot_interaction_backward):
-    """Inside, the model's pooling and dot interaction run their plain
-    forwards, and ``k1_bwd`` / ``k2_bwd`` (the plain backward versions, in
-    float64, unless a test hands in broken ones) as their backwards: no
-    kernel launches."""
-    kernels = ops.embedding_bag, ops.dot_interaction
+def plain_backward(k1_bwd=ref.embedding_bag_backward, k2_bwd=ref.dot_interaction_backward,
+                   k3_bwd=ref.cin_layer_backward):
+    """Inside, the model's pooling, dot interaction and CIN layers run their
+    plain forwards, and ``k1_bwd`` / ``k2_bwd`` / ``k3_bwd`` (the plain
+    backward versions, in float64, unless a test hands in broken ones) as
+    their backwards: no kernel launches."""
+    kernels = ops.embedding_bag, ops.dot_interaction, ops.cin_layer
     ops.embedding_bag = lambda tables, idx, mode="sum": _PlainBag.apply(tables, idx, mode, k1_bwd)
     ops.dot_interaction = lambda feats: _PlainDot.apply(feats, k2_bwd)
+    ops.cin_layer = lambda x0, xk, w: _PlainCin.apply(x0, xk, w, k3_bwd)
     try:
         yield
     finally:
-        ops.embedding_bag, ops.dot_interaction = kernels
+        ops.embedding_bag, ops.dot_interaction, ops.cin_layer = kernels
 
 
 def step_grads(loss_fn, params, batch) -> tuple[float, dict]:
@@ -2524,10 +2722,22 @@ def check_train_grads(what: str, got: dict, want: dict) -> float:
     return max(grad_compare(f"{what} grad {k}", got[k], w) for k, w in want.items())
 
 
-def expect_train_launches(what: str, launches: dict, steps: int) -> None:
-    """Exactly one K1, K1-bwd, K2 and K2-bwd a step, and nothing else."""
-    want = {**dict.fromkeys(KERNELS, 0), "embedding_bag": steps, "dot_interaction": steps,
-            "embedding_bag_backward": steps, "dot_interaction_backward": steps}
+def train_launches(cfg) -> dict[str, int]:
+    """A recommendation model's launches a training step: one K1 and one
+    K1-bwd; one K2 and one K2-bwd for a dot interaction; a K3 and a K3-bwd
+    a CIN layer."""
+    dot = int(cfg.interaction == "dot")
+    cin = len(cfg.cin_layers) if cfg.interaction == "cin" else 0
+    return {"embedding_bag": 1, "embedding_bag_backward": 1, "dot_interaction": dot,
+            "dot_interaction_backward": dot, "cin_layer": cin, "cin_layer_backward": cin}
+
+
+def expect_train_launches(what: str, launches: dict, steps: int,
+                          per_step: dict | None = None) -> None:
+    """Exactly ``per_step``'s launches a step (by default RMC2's: one K1,
+    K1-bwd, K2 and K2-bwd), and nothing else."""
+    per_step = per_step or train_launches(PAPER_MODELS[TRAIN_ARCH])
+    want = {**dict.fromkeys(KERNELS, 0), **{k: v * steps for k, v in per_step.items()}}
     if launches != want:
         fail(f"train {what}: {steps} steps launched {launches}, expected {want}")
 
@@ -2810,36 +3020,42 @@ def check_losses(what: str, losses: list, n: int) -> None:
         fail(f"train {what}: losses {losses}, expected {n} finite ones")
 
 
-def train_recsys(seed: int, dev, gen) -> dict:
-    """DLRM-RMC2 at its published size: (a) one step's gradients through the
-    kernels against the plain backward versions, then TRAIN_STEPS steps of
-    ``train`` with exactly one K1, K1-bwd, K2 and K2-bwd a step; (c) a run
-    stopped at TRAIN_RESUME_AT with a checkpoint and resumed from it, its
-    losses against the straight run's; (b) a step's parts timed, and K1-bwd
-    and K2-bwd checked against their plain versions and timed."""
-    cfg = PAPER_MODELS[TRAIN_ARCH]
+def train_recsys(seed: int, dev, gen, arch: str = TRAIN_ARCH, steps: int = TRAIN_STEPS,
+                 resume_at: int = TRAIN_RESUME_AT, kernel_timings: bool = True) -> dict:
+    """A recommendation model (by default DLRM-RMC2) at its published size,
+    B = TRAIN_BATCH: (a) one step's gradients through the kernels against
+    the plain backward versions, then ``steps`` steps of ``train`` with
+    exactly the model's kernels a step (``train_launches``); (c) a run
+    stopped at ``resume_at`` with a checkpoint and resumed from it, its
+    losses against the straight run's; (b) a step's parts timed, and with
+    ``kernel_timings`` K1-bwd and K2-bwd checked against their plain
+    versions and timed."""
+    t_start = time.monotonic()
+    cfg = configs.get(arch).config
+    per_step = train_launches(cfg)
     rng = np.random.default_rng(seed)
     params = recsys.init(gen, cfg, device=dev)
-    batches = [to_device(syn.recsys_batch(rng, cfg, TRAIN_BATCH), dev) for _ in range(TRAIN_STEPS)]
+    batches = [to_device(syn.recsys_batch(rng, cfg, TRAIN_BATCH), dev) for _ in range(steps)]
 
     def loss_fn(p, b):
         return recsys.loss_fn(p, cfg, b)
 
     ops.reset_launch_counts()
     loss_k, grads_k = step_grads(loss_fn, params, batches[0])
-    expect_train_launches("gradient step", ops.launch_counts(), 1)
+    expect_train_launches(f"{arch} gradient step", ops.launch_counts(), 1, per_step)
     before = ops.launch_counts()
     with plain_backward():
         loss_p, grads_p = step_grads(loss_fn, params, batches[0])
     if ops.launch_counts() != before:
-        fail("train: the plain step launched a kernel")
-    grad_err = check_train_grads("train", grads_k, grads_p)
-    loss_err = compare("train loss", torch.tensor(loss_k), torch.tensor(loss_p), 1e-5, 0.0)
+        fail(f"train {arch}: the plain step launched a kernel")
+    grad_err = check_train_grads(f"train {arch}", grads_k, grads_p)
+    loss_err = compare(f"train {arch} loss", torch.tensor(loss_k), torch.tensor(loss_p), 1e-5,
+                       0.0)
     del grads_k, grads_p
     torch.cuda.empty_cache()
 
-    def run(steps, batch_list, losses, **kw):
-        return train(loss_fn, recsys_optimizer(), params, iter(batch_list), num_steps=steps,
+    def run(n, batch_list, losses, **kw):
+        return train(loss_fn, recsys_optimizer(), params, iter(batch_list), num_steps=n,
                      log_every=0, clip_norm=TRAIN_CLIP,
                      hooks=[lambda s, p, m: losses.append(float(m["loss"]))], **kw)
 
@@ -2847,12 +3063,12 @@ def train_recsys(seed: int, dev, gen) -> dict:
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    state = run(TRAIN_STEPS, batches, straight)
+    state = run(steps, batches, straight)
     torch.cuda.synchronize()
     straight_s = time.monotonic() - t0
     launches = ops.launch_counts()
-    expect_train_launches(f"{TRAIN_STEPS} steps", launches, TRAIN_STEPS)
-    check_losses("straight run", straight, TRAIN_STEPS)
+    expect_train_launches(f"{arch} {steps} steps", launches, steps, per_step)
+    check_losses(f"{arch} straight run", straight, steps)
     del state
     torch.cuda.empty_cache()
 
@@ -2860,52 +3076,56 @@ def train_recsys(seed: int, dev, gen) -> dict:
     try:
         first, resumed = [], []
         t0 = time.monotonic()
-        run(TRAIN_RESUME_AT, batches, first, ckpt_dir=str(TRAIN_CKPT),
-            ckpt_every=TRAIN_RESUME_AT)
+        run(resume_at, batches, first, ckpt_dir=str(TRAIN_CKPT), ckpt_every=resume_at)
         save_s = time.monotonic() - t0
         torch.cuda.empty_cache()
         ops.reset_launch_counts()
         t0 = time.monotonic()
-        state = run(TRAIN_STEPS, batches[TRAIN_RESUME_AT:], resumed, ckpt_dir=str(TRAIN_CKPT),
-                    ckpt_every=TRAIN_STEPS)
+        state = run(steps, batches[resume_at:], resumed, ckpt_dir=str(TRAIN_CKPT),
+                    ckpt_every=steps)
         resume_s = time.monotonic() - t0
-        expect_train_launches("resumed run", ops.launch_counts(), TRAIN_STEPS - TRAIN_RESUME_AT)
+        expect_train_launches(f"{arch} resumed run", ops.launch_counts(), steps - resume_at,
+                              per_step)
         launches = {k: launches[k] + n for k, n in ops.launch_counts().items()}
         del state
     finally:
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     torch.cuda.empty_cache()
-    check_losses("resumed run", resumed, TRAIN_STEPS - TRAIN_RESUME_AT)
+    check_losses(f"{arch} resumed run", resumed, steps - resume_at)
     # bit for bit: every kernel of the step sums in an order fixed by its
     # inputs (K1-bwd by the sorted lookups and its chunks, K2-bwd in
-    # ascending j, no atomics), the batches and the checkpointed state are
-    # the same, so the runs repeat exactly
-    check_same_bits("train resumed losses", resumed, straight[TRAIN_RESUME_AT:])
-    check_same_bits("train stopped run's losses", first, straight[:TRAIN_RESUME_AT])
+    # ascending j, K3-bwd in runs fixed by the shapes; no atomics), the
+    # batches and the checkpointed state are the same, so the runs repeat
+    # exactly
+    check_same_bits(f"train {arch} resumed losses", resumed, straight[resume_at:])
+    check_same_bits(f"train {arch} stopped run's losses", first, straight[:resume_at])
 
     opt = recsys_optimizer()
     parts = train_step_ms(loss_fn, params, opt, opt.init(params),
                           batches[:TRAIN_TIMED_STEPS + 1])
     torch.cuda.empty_cache()
-    checks, k1_err, k2_err = check_backward_kernels(rng, gen, dev, cfg.vocab)
-    k1_times = [time_embedding_bag_backward(rng, gen, dev, params["tables"], TRAIN_BATCH, ids)
-                for ids in ("zipf", "uniform")]
-    k2_time = time_dot_interaction_backward(gen, dev)
-    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"arch": arch, "batch": TRAIN_BATCH, "steps": steps,
+           "first_loss": straight[0], "last_loss": straight[-1], "losses": straight,
+           "grad_max_abs_err": grad_err, "loss_abs_err": loss_err, "tol": TOL[torch.float32],
+           "ms_a_step_host": straight_s / steps * 1e3, **parts,
+           "resumed_from": resume_at, "resumed_losses": resumed,
+           "resume_bit_for_bit": True,
+           "checkpoint_save_s": save_s, "resume_run_s": resume_s,
+           "launches": launches, "launches_a_step": per_step}
+    if kernel_timings:
+        checks, k1_err, k2_err = check_backward_kernels(rng, gen, dev, cfg.vocab)
+        out.update({
+            "backward_checks": checks, "embedding_bag_backward_max_abs_err": k1_err,
+            "dot_interaction_backward_max_abs_err": k2_err,
+            "timings_embedding_bag_backward": [
+                time_embedding_bag_backward(rng, gen, dev, params["tables"], TRAIN_BATCH, ids)
+                for ids in ("zipf", "uniform")],
+            "timing_dot_interaction_backward": time_dot_interaction_backward(gen, dev)})
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.monotonic() - t_start
     del params, batches
     torch.cuda.empty_cache()
-    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
-            "first_loss": straight[0], "last_loss": straight[-1], "losses": straight,
-            "grad_max_abs_err": grad_err, "loss_abs_err": loss_err, "tol": TOL[torch.float32],
-            "ms_a_step_host": straight_s / TRAIN_STEPS * 1e3, **parts,
-            "resumed_from": TRAIN_RESUME_AT, "resumed_losses": resumed,
-            "resume_bit_for_bit": True,
-            "checkpoint_save_s": save_s, "resume_run_s": resume_s,
-            "launches": launches, "backward_checks": checks,
-            "embedding_bag_backward_max_abs_err": k1_err,
-            "dot_interaction_backward_max_abs_err": k2_err,
-            "timings_embedding_bag_backward": k1_times,
-            "timing_dot_interaction_backward": k2_time, "peak_gb": peak / 1e9}
+    return out
 
 
 def train_lm(seed: int, dev, gen) -> dict:
@@ -2954,9 +3174,13 @@ def train_phase(seed: int, dev, gen) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     line = {"phase": "train", "recsys": train_recsys(seed, dev, gen)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    line["xdeepfm"] = train_recsys(seed, dev, gen, TRAIN_CIN_ARCH, TRAIN_CIN_STEPS,
+                                   TRAIN_CIN_RESUME_AT, kernel_timings=False)
     line["lm"] = train_lm(seed, dev, gen)
     line["seconds"] = time.monotonic() - t0
-    line["launches"] = line["recsys"]["launches"]
+    line["launches"] = {k: line["recsys"]["launches"][k] + line["xdeepfm"]["launches"][k]
+                        for k in KERNELS}
     return line
 
 
@@ -2979,13 +3203,30 @@ def gnn_run(loss_fn, params, batch: dict, steps: int):
     return losses, ms, state.params
 
 
+STARTED = time.monotonic()         # the script's start: a profile records its process's age
+
+
+def lost_kernel_records(events) -> int:
+    """Kernel launches in a torch.profiler trace that have no kernel record:
+    launch calls on the host (runtime or driver, ``*LaunchKernel*``) whose
+    correlation id no device event carries.  On an H100 machine (torch
+    2.11, CUPTI) a trace kept every launch call but lost kernel records,
+    late in a long run; the cause is not known."""
+    launched = {e.id for e in events if e.device_type == DeviceType.CPU
+                and "LaunchKernel" in e.name}
+    recorded = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    return len(launched - recorded)
+
+
 def step_profile(fn, top: int = 8) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of its
     ``top`` longest kernels (by name, summed over launches), the sum over all
     its kernels, and that sum's share of the call's wall time, the device's
     busy share (the kernels run on one stream, so they do not overlap).
-    None where the trace saw no device time."""
-    from torch.autograd import DeviceType
+    ``kernel_records_lost`` counts the launches the trace kept no kernel
+    record of (``lost_kernel_records``): where it is not 0, ``complete`` is
+    false and ``device_ms``, ``busy_share`` and ``launches`` are lower
+    bounds.  None where the trace saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2997,10 +3238,13 @@ def step_profile(fn, top: int = 8) -> dict:
                       for e in prof.key_averages()
                       if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
     total = sum(ms for ms, _, _ in kernels)
+    lost = lost_kernel_records(prof.events())
+    age = {"process_age_s": time.monotonic() - STARTED, "kernel_records_lost": lost,
+           "complete": lost == 0}
     if not total:
-        return {"wall_ms": wall_ms, "device_ms": None}
+        return {"wall_ms": wall_ms, "device_ms": None, **age}
     return {"wall_ms": wall_ms, "device_ms": total, "busy_share": total / wall_ms,
-            "launches": sum(n for _, n, _ in kernels),
+            "launches": sum(n for _, n, _ in kernels), **age,
             "top": [{"kernel": k[:90], "ms": ms, "launches": n} for ms, n, k in kernels[:top]]}
 
 
@@ -3421,15 +3665,20 @@ def clone_tree(tree):
     return tree_map(lambda t: t.clone(), tree)
 
 
-def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
-    """DLRM-RMC2's train_batch cell at its published size and batch (40 x
-    10^6 x 32 float32 tables, B = 65,536): one step of the cell's
-    train_step on DTensors and the same step on plain tensors from the same
-    parameters, optimiser state and batch; loss, every parameter and every
-    optimiser leaf bit for bit (``same_leaves``); exactly one K1, K2, K1-bwd
-    and K2-bwd a step on each path; then CELLS_TIMED more steps of each
+def cells_train_recsys(seed: int, dev, gen, mesh, launches: dict,
+                     cell_key: tuple[str, str] = CELLS_TRAIN) -> dict:
+    """A recommendation model's train_batch cell at its published size and
+    batch (by default DLRM-RMC2's: 40 x 10^6 x 32 float32 tables; B =
+    65,536): one step of the cell's train_step on DTensors and the same
+    step on plain tensors from the same parameters, optimiser state and
+    batch; loss, every parameter and every optimiser leaf bit for bit
+    (``same_leaves``, and no leaf let through at its tolerance); exactly
+    the model's kernels a step on each path
+    (``train_launches``: RMC2 one K1, K2, K1-bwd and K2-bwd; xDeepFM one K1
+    and K1-bwd, three K3 and K3-bwd); then CELLS_TIMED more steps of each
     path timed, and one more under torch.profiler (``step_profile``)."""
-    arch, shape = CELLS_TRAIN
+    t_start = time.monotonic()
+    arch, shape = cell_key
     cfg = configs.get(arch).config
     cell = steps_lib.build_cell(arch, shape, mesh)
     b = configs.RECSYS_SHAPES[shape].batch
@@ -3438,8 +3687,7 @@ def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
     state = cell.init_state(params)
     batch = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, b), dev)
     sharded = cell.place(clone_tree(params), clone_tree(state), batch)
-    one = {**dict.fromkeys(KERNELS, 0), "embedding_bag": 1, "dot_interaction": 1,
-           "embedding_bag_backward": 1, "dot_interaction_backward": 1}
+    one = {**dict.fromkeys(KERNELS, 0), **train_launches(cfg)}
     out = {"arch": arch, "shape": shape, "batch": b, "mesh": list(mesh.shape)}
     runs = {}
     for name, args in (("sharded", sharded), ("unsharded", (params, state, batch))):
@@ -3455,6 +3703,9 @@ def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
                                 local_leaves(params))
     out["opt_state"] = same_leaves(f"cells {arch} optimiser state", local_leaves(sharded[1]),
                                    local_leaves(state))
+    differ = out["params"]["at_tol"] + out["opt_state"]["at_tol"]
+    if differ:
+        fail(f"cells {arch}: the DTensor step's leaves {differ} are not the plain step's bits")
     for name, args in (("sharded", sharded), ("unsharded", (params, state, batch))):
         ops.reset_launch_counts()
         runs[name]["step_ms"], _ = timed_calls(lambda: cell.fn(*args), CELLS_TIMED)
@@ -3468,6 +3719,7 @@ def cells_train_rmc2(seed: int, dev, gen, mesh, launches: dict) -> dict:
     out["launches_a_step"] = one
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["distinct_rows"] = distinct_rows([batch["sparse"]], cfg.vocab)
+    out["seconds"] = time.monotonic() - t_start
     del params, state, batch, sharded, cell
     torch.cuda.empty_cache()
     return out
@@ -4013,7 +4265,9 @@ def cells_phase(seed: int, dev, gen) -> dict:
         mesh = mesh_lib.make_host_mesh(1, 1)
         line = {"phase": "cells", "backend": dist.get_backend(), "mesh": list(mesh.shape),
                 "launches": dict.fromkeys(KERNELS, 0)}
-        for key, fn in (("rmc2_train_batch", cells_train_rmc2),
+        for key, fn in (("rmc2_train_batch", cells_train_recsys),
+                        ("xdeepfm_train_batch",
+                         lambda *a: cells_train_recsys(*a, cell_key=CELLS_TRAIN_CIN)),
                         ("xdeepfm_serve_p99", cells_serve_xdeepfm),
                         ("granite_moe_train_4k", cells_train_lm)):
             line[key] = fn(seed, dev, gen, mesh, line["launches"])
@@ -4388,6 +4642,11 @@ def main() -> None:
     del xdfm_tables
     cin_times = [time_cin_layer(gen, dev, b, f, h, hn, xdfm.embed_dim)
                  for b in ZOO_BATCHES for f, h, hn in xdeepfm_cin_shapes()]
+    t_bwd = time.monotonic()
+    cin_bwd_checks, cin_bwd_err = check_cin_layer_backward(gen, dev)
+    cin_bwd_times = [time_cin_layer_backward(gen, dev, b, f, h, hn, xdfm.embed_dim)
+                     for b in CIN_BWD_TIMED for f, h, hn in xdeepfm_cin_shapes()]
+    t_bwd = time.monotonic() - t_bwd
     da_checks, da_err = check_decode_attention(rng, gen, dev)
     t32k = configs.LM_SHAPES["decode_32k"]
     da_times = time_decode_attentions(args.seed, gen, dev)
@@ -4398,6 +4657,8 @@ def main() -> None:
                             "timings_xdeepfm": eb_times_xdfm},
           "dot_interaction": {"checks": ix_checks, "timings_rmc2_rmc1": ix_times},
           "cin_layer": {"checks": cin_checks, "timings_xdeepfm": cin_times},
+          "cin_layer_backward": {"checks": cin_bwd_checks, "timings_xdeepfm": cin_bwd_times,
+                                 "seconds": t_bwd},
           "decode_attention": {"checks": da_checks, "timings_qwen2": da_times}})
 
     after({"phase": "parity", "rtol": 1e-4, "atol": 1e-4,
@@ -4482,6 +4743,9 @@ def main() -> None:
     cin_main = next(t for t in cin_times
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
     b, f, h, hn, d = cin_main["shape"]
+    cin_bwd_main, cin_bwd_big = (next(t for t in cin_bwd_times if t["shape"][0] == bb
+                                      and t["shape"][1] * t["shape"][2] == k_max)
+                                 for bb in CIN_BWD_TIMED)
     qwen = configs.get(LM_ARCH).config
     rec = trained["recsys"]
     k1b_main, k1b_uniform = rec["timings_embedding_bag_backward"]
@@ -4561,6 +4825,30 @@ def main() -> None:
          "share_of_bound": cin_main["share_of_bound"],
          "prepass_ms": cin_main["prepass_ms"], "prepass_share": cin_main["prepass_share"],
          "shape": f"x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), w ({h * f}, {hn}) float32"},
+        {"name": "cin_layer_backward", "route": "cuda",
+         "source": "src/repro_torch/csrc/cin_backward.cu",
+         "replaces": "src/repro/kernels/cin.py:20",
+         "of": "K3's gradient (the TPU kernel has no backward; XLA's autodiff of the "
+               "reference's plain CIN layer gives it)",
+         "launches": total["cin_layer_backward"], "max_abs_err": cin_bwd_err,
+         "ms": cin_bwd_main["kernel_ms"], "call_ms": cin_bwd_main["kernel_call_ms"],
+         "plain_ms": cin_bwd_main["plain_ms"],
+         "bound_ms": cin_bwd_main["bound_ms"], "bound_by": cin_bwd_main["bound_by"],
+         "library_ms": cin_bwd_main["library_ms"],
+         "share_of_bound": cin_bwd_main["share_of_bound"],
+         "bound_of": cin_bwd_main["bound_of"], "tf32x3_bound_ms": cin_bwd_main["tf32x3_bound_ms"],
+         "tf32x3_share_of_bound": cin_bwd_main["tf32x3_share_of_bound"],
+         "design": "float32 on the CUDA cores, 128 x 128 tiles of 8 x 8 a thread: the data "
+                   "gradient's P = g·w^T a chunk of columns at a time, contracted with x0 "
+                   "and xk in shared memory, a thread a row; the weight gradient with A = "
+                   "xk·x0 formed as it is loaded; runs fixed by the shapes, their float32 "
+                   "partials added in order by a second kernel; no atomics",
+         "train_batch": {k: cin_bwd_big[k] for k in ("shape", "kernel_ms", "bound_ms",
+                                                    "bound_by", "library_ms",
+                                                    "share_of_bound", "tf32x3_bound_ms",
+                                                    "tf32x3_share_of_bound")},
+         "shape": f"g ({b}, {hn}, {d}), x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), "
+                  f"w ({h * f}, {hn}) float32"},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:23",

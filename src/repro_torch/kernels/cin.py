@@ -1,10 +1,13 @@
-"""ctypes binding of ``csrc/cin.cu`` (kernel K3, one xDeepFM CIN layer).
+"""ctypes binding of ``csrc/cin.cu`` (kernel K3, one xDeepFM CIN layer) and
+of ``csrc/cin_backward.cu`` (K3-bwd, its gradient).
 
 ``launch`` takes tensors that ``ops.cin_layer`` has already validated,
 enqueues the kernel on PyTorch's current stream without synchronising, and
 raises if CUDA refused the launch.  ``launch_count`` rises by one per
 launch and nowhere else (a split launch, main kernel and sum of the
-partials, counts once).
+partials, counts once).  ``launch_backward`` and
+``backward_launch_count`` are the same for K3-bwd (its data and weight
+products and the sums of their runs count once).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import ctypes
 import functools
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -28,12 +32,29 @@ MIN_STAGES, BARRIER_BYTES, SMEM_LIMIT = 2, 128, 232448
 # split K until the blocks fill at least this share of one wave on the SMs
 MIN_WAVE_SHARE = 0.9
 
+# copies of csrc/cin_backward.cu's constants (a test holds them equal): a
+# block's tile of outputs, the reduction values a stage, the row strides of
+# a stage's tiles and of P's staging tile, and the float32 values of the
+# two stages' operands
+BWD_TILE, BWD_STAGE = 128, 8
+BWD_LD, BWD_PS = BWD_TILE + 4, BWD_TILE // 2 + 4
+# K3-bwd cuts its products into runs until a launch has at least two waves
+# of blocks, a wave being BWD_SLOTS blocks (two a SM on an H100's 132); a
+# constant, so that the runs, and with them the order of every sum, depend
+# on the shapes alone
+BWD_SLOTS = 264
+BWD_TARGET_BLOCKS = 2 * BWD_SLOTS
+BWD_MIN_RUN = 256            # rows of the weight gradient a run, at least
+
 launch_count = 0
+backward_launch_count = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
 _ARGTYPES = {
     "cin_layer_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "cin_split_w_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "cin_layer_backward_launch": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -166,3 +187,130 @@ def launch(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor, out: torch.Tenso
         raise RuntimeError(f"cin_layer kernel launch failed: CUDA error {err}")
     with _count_lock:
         launch_count += 1
+
+
+class BackwardPlan(NamedTuple):
+    """How K3-bwd cuts its two products: the data gradient's h values into
+    ``data_splits`` runs of ``h_run`` (each run writes its own dxk and a
+    float32 plane of dx0 when there is more than one), the weight
+    gradient's M = B·D rows into ``weight_splits`` runs of ``row_run`` (a
+    multiple of ``BWD_STAGE``; a float32 plane of dw each when more than
+    one).  No run is empty."""
+    data_splits: int
+    h_run: int
+    weight_splits: int
+    row_run: int
+
+
+def _wave_share(blocks: int) -> float:
+    """The share of a launch's waves of ``BWD_SLOTS`` blocks that its
+    ``blocks`` fill (the last wave's idle slots are the rest)."""
+    return blocks / (-(-blocks // BWD_SLOTS) * BWD_SLOTS)
+
+
+def backward_plan(b: int, f: int, h: int, n: int, d: int) -> BackwardPlan:
+    """K3-bwd's runs at x0 (B, F, D), xk (B, H, D), w (H·F, N), from the
+    shapes alone (csrc/cin_backward.cu checks them).  Each product with
+    fewer than ``BWD_TARGET_BLOCKS`` tiles is cut into between the fewest
+    runs that reach it and four times as many, the count that wastes the
+    least: for the data gradient the last wave's idle slots and the unused
+    columns of a run's last chunk of P (a run of h values is h·F columns in
+    chunks of ``BWD_TILE``), at most H runs; for the weight gradient the
+    last wave's idle slots, runs of at least ``BWD_MIN_RUN`` rows, a whole
+    number of stages each.  Ties go to fewer runs.  Raises ValueError when
+    F is too large for a block's shared memory."""
+    if backward_shared_bytes(f) > SMEM_LIMIT:
+        raise ValueError(f"K3-bwd at F={f} needs {backward_shared_bytes(f)} bytes of shared "
+                         f"memory a block; it has {SMEM_LIMIT}")
+    m, k = b * d, h * f
+    row_tiles = max(1, -(-m // BWD_TILE))
+    h_run = h
+    if row_tiles < BWD_TARGET_BLOCKS:
+        lo = min(h, -(-BWD_TARGET_BLOCKS // row_tiles))
+
+        def data_share(hr: int) -> float:
+            cols = hr * f
+            return _wave_share(row_tiles * -(-h // hr)) * cols / (-(-cols // BWD_TILE) * BWD_TILE)
+        h_run = max(sorted({-(-h // s) for s in range(lo, min(h, 4 * lo) + 1)}, reverse=True),
+                    key=data_share)
+
+    def rows_of(runs: int) -> tuple[int, int]:              # (runs, rows a run): whole stages
+        run = max(1, -(-(-(-m // runs)) // BWD_STAGE)) * BWD_STAGE
+        return max(1, -(-m // run)), run
+    weight_tiles = -(-k // BWD_TILE) * max(1, -(-n // BWD_TILE))
+    cap = max(1, m // BWD_MIN_RUN)
+    lo = min(cap, -(-BWD_TARGET_BLOCKS // weight_tiles))
+    weight_splits, row_run = max((rows_of(s) for s in range(lo, min(cap, 4 * lo) + 1)),
+                                 key=lambda p: _wave_share(weight_tiles * p[0]))
+    return BackwardPlan(-(-h // h_run), h_run, weight_splits, row_run)
+
+
+def backward_error_bound(b: int, f: int, h: int, n: int, d: int) -> dict[str, float]:
+    """The factor c of each of K3-bwd's gradients against its float64 value,
+    |got - exact| <= c · Σ|terms| (each term a product of three float32
+    factors, rounded twice), as gamma_L (u = 2^-24) of the longest chain of
+    roundings a result meets: dxk's N products summed into P, then its F
+    terms; dx0's N, then its H terms within a run of h, then the runs; dw's
+    rows of a run, then the runs (``backward_plan``)."""
+    p = backward_plan(b, f, h, n, d)
+    u = 2.0 ** -24
+
+    def gamma(chain: int) -> float:
+        return chain * u / (1 - chain * u)
+    return {"dx0": gamma(n + h + p.data_splits + 3), "dxk": gamma(n + f + 3),
+            "dw": gamma(p.row_run + p.weight_splits + 3)}
+
+
+def backward_shared_bytes(f: int) -> int:
+    """The data gradient's shared memory a block: two stages of both
+    operands, P's staging tile, and x0's tile and dx0's sums (F rows of
+    ``BWD_TILE`` each)."""
+    return (4 * BWD_STAGE * BWD_LD + BWD_TILE * BWD_PS + 2 * f * BWD_TILE) * 4
+
+
+def backward_scratch(p: BackwardPlan, b: int, f: int, h: int, n: int,
+                     d: int) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The float32 workspaces of a launch, by name: the planes of dx0's and
+    dw's runs, where there is more than one."""
+    out = {}
+    if p.data_splits > 1:
+        out["dx0_partial"] = ((p.data_splits, b, f, d), torch.float32)
+    if p.weight_splits > 1:
+        out["dw_partial"] = ((p.weight_splits, h * f, n), torch.float32)
+    return out
+
+
+def backward_work(b: int, f: int, h: int, n: int, d: int,
+                  itemsize: int) -> tuple[dict[str, float], float]:
+    """K3-bwd's work at g (B, N, D), x0 (B, F, D), xk (B, H, D), w (H·F, N):
+    (FLOPs by unit, bytes).  g, x0, xk, w read once and dx0, dxk, dw written
+    once; float32 on the CUDA cores: the data product 2·M·N·K and its two
+    contractions 4·M·K, the weight product 2·M·K·N and forming A, M·K
+    (M = B·D, K = H·F)."""
+    m, k = b * d, h * f
+    flops = 2 * m * n * k + 4 * m * k + 2 * m * k * n + m * k
+    return {"fp32": flops}, (b * n * d + 2 * (b * f * d + b * h * d + k * n)) * itemsize
+
+
+def launch_backward(g: torch.Tensor, x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
+                    dx0: torch.Tensor, dxk: torch.Tensor, dw: torch.Tensor, *,
+                    plan: BackwardPlan, scratch: dict[str, torch.Tensor]) -> None:
+    """g (B, N, D), x0 (B, F, D), xk (B, H, D), w (H·F, N) and the outputs
+    dx0, dxk, dw (their inputs' shapes), contiguous, one dtype, on one CUDA
+    device; ``plan`` is ``backward_plan``'s for these shapes and ``scratch``
+    holds ``backward_scratch``'s workspaces."""
+    global backward_launch_count
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    ptr = {k: v.data_ptr() for k, v in scratch.items()}
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _function("cin_layer_backward_launch")(
+            g.data_ptr(), x0.data_ptr(), xk.data_ptr(), w.data_ptr(), dx0.data_ptr(),
+            dxk.data_ptr(), dw.data_ptr(), ptr.get("dx0_partial"), ptr.get("dw_partial"),
+            b, f, h, n, d, plan.data_splits, plan.h_run, plan.weight_splits, plan.row_run,
+            DTYPE_CODE[x0.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"cin_layer backward kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        backward_launch_count += 1

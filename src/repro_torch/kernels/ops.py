@@ -10,14 +10,15 @@ sizes and ``D = 130`` go straight through).  Each wrapper checks device,
 dtype, shape and contiguity, allocates its output with ``torch.empty``,
 launches on the current stream and does not synchronise.
 
-Gradients.  When autograd needs one, ``embedding_bag`` and
-``dot_interaction`` go through a ``torch.autograd.Function`` whose backward
-is a kernel too (K1-bwd, K2-bwd) on a CUDA tensor, and the plain backward
-in ``ref`` on a CPU tensor.  When none is needed (serving, or no input that
-requires grad) the path is the forward alone, with no graph and no
-backward launch.  The kernels without a backward kernel (``gram``,
-``cin_layer``, ``decode_attention``) raise on a CUDA tensor that needs a
-gradient rather than hand back a result autograd cannot see through.
+Gradients.  When autograd needs one, ``embedding_bag``,
+``dot_interaction`` and ``cin_layer`` go through a
+``torch.autograd.Function`` whose backward is a kernel too (K1-bwd, K2-bwd,
+K3-bwd) on a CUDA tensor, and the plain backward in ``ref`` on a CPU
+tensor.  When none is needed (serving, or no input that requires grad) the
+path is the forward alone, with no graph and no backward launch.  The
+kernels without a backward kernel (``gram``, ``decode_attention``) raise on
+a CUDA tensor that needs a gradient rather than hand back a result
+autograd cannot see through.
 
 DTensors.  ``embedding_bag``, ``dot_interaction`` and ``cin_layer`` take
 ``torch.distributed.tensor.DTensor`` arguments too: through
@@ -42,9 +43,8 @@ the card, allocates the kernel's output (and K1-bwd's zeroed gradient and
 scratch) with ``torch.empty`` / ``torch.zeros``, and records the kernel's
 work (each kernel module's ``work``) with ``roofline.analysis``'s active
 counters, in place of building and launching it.  No launch is counted.
-A ``cin_layer`` on fake tensors that needs a gradient runs the plain
-version, whose operations the counter sees: there is no K3 backward kernel
-to count.
+The backward kernels are accounted the same way when autograd runs on fake
+tensors.
 """
 from __future__ import annotations
 
@@ -68,13 +68,14 @@ def launch_counts() -> dict[str, int]:
     return {"embedding_bag": _eb.launch_count, "dot_interaction": _ix.launch_count,
             "cin_layer": _cin.launch_count, "decode_attention": _da.launch_count,
             "embedding_bag_backward": _eb.backward_launch_count,
-            "dot_interaction_backward": _ix.backward_launch_count}
+            "dot_interaction_backward": _ix.backward_launch_count,
+            "cin_layer_backward": _cin.backward_launch_count}
 
 
 def reset_launch_counts() -> None:
     _eb.launch_count = _eb.backward_launch_count = 0
     _ix.launch_count = _ix.backward_launch_count = 0
-    _cin.launch_count = 0
+    _cin.launch_count = _cin.backward_launch_count = 0
     _da.launch_count = 0
 
 
@@ -440,21 +441,82 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
         raise ValueError(f"x0 lies on {x0.device}, xk on {xk.device}, w on {w.device}")
     if any(isinstance(t, DTensor) for t in (x0, xk, w)):
         return _on_batch_shards(cin_layer, (x0, xk), (w,))
+    if _needs_grad(x0, xk, w):
+        return _CinLayer.apply(x0, xk, w)
+    return _cin_layer(x0, xk, w)
+
+
+def _cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fake = is_fake(x0)
-    if fake and _needs_grad(x0, xk, w):
-        return ref.cin_layer(x0, xk, w)
-    _no_backward_kernel("cin_layer", "K3's backward kernel is queued in ROADMAP.md", x0, xk, w)
     if not x0.is_cuda and not fake:
         return ref.cin_layer(x0, xk, w)
     if x0.is_cuda:
         for name, t in (("x0", x0), ("xk", xk), ("w", w)):
             _require_contiguous(name, t)
+    b, f, d = x0.shape
+    h = xk.shape[1]
     out = torch.empty((b, w.shape[1], d), dtype=x0.dtype, device=x0.device)
     if fake:
         _account("cin_layer", _cin.work(b, f, h, w.shape[1], d, x0.element_size()))
     elif out.numel():
         _cin.launch(x0, xk, w, out)
     return out
+
+
+def cin_layer_backward(g: torch.Tensor, x0: torch.Tensor, xk: torch.Tensor,
+                       w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``cin_layer``: g = ∂L/∂out (B, Hn, D), x0 (B, F, D),
+    xk (B, H, D), w (H·F, Hn) → (dx0, dxk, dw) in the inputs' dtype, every
+    sum float32.  A CUDA tensor launches K3-bwd (the outer-product maps and
+    ``w·g`` are never stored; the same bits every launch); a CPU tensor
+    takes ``ref.cin_layer_backward``."""
+    if g.ndim != 3 or x0.ndim != 3 or xk.ndim != 3 or w.ndim != 2:
+        raise ValueError(f"expected g (B, Hn, D), x0 (B, F, D), xk (B, H, D), w (H·F, Hn); "
+                         f"got {tuple(g.shape)}, {tuple(x0.shape)}, {tuple(xk.shape)}, "
+                         f"{tuple(w.shape)}")
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    if (xk.shape[0], xk.shape[2]) != (b, d) or g.shape != (b, n, d) or w.shape[0] != h * f:
+        raise ValueError(f"g {tuple(g.shape)}, x0 {tuple(x0.shape)}, xk {tuple(xk.shape)} "
+                         f"and w {tuple(w.shape)} do not fit one CIN layer")
+    if x0.dtype not in _DTYPES or any(t.dtype != x0.dtype for t in (g, xk, w)):
+        raise TypeError(f"g, x0, xk, w must share one dtype of float32/bfloat16, got "
+                        f"{g.dtype}, {x0.dtype}, {xk.dtype}, {w.dtype}")
+    if any(t.device != x0.device for t in (g, xk, w)):
+        raise ValueError(f"g lies on {g.device}, x0 on {x0.device}, xk on {xk.device}, "
+                         f"w on {w.device}")
+    fake = is_fake(x0)
+    if not x0.is_cuda and not fake:
+        return ref.cin_layer_backward(g, x0, xk, w)
+    if x0.is_cuda:
+        for name, t in (("g", g), ("x0", x0), ("xk", xk), ("w", w)):
+            _require_contiguous(name, t)
+    if b * d == 0 or n == 0:                        # nothing to sum: zeros, no launch
+        return torch.zeros_like(x0), torch.zeros_like(xk), torch.zeros_like(w)
+    plan = _cin.backward_plan(b, f, h, n, d)
+    dx0, dxk, dw = torch.empty_like(x0), torch.empty_like(xk), torch.empty_like(w)
+    scratch = {name: torch.empty(shape, dtype=dtype, device=x0.device)
+               for name, (shape, dtype) in _cin.backward_scratch(plan, b, f, h, n, d).items()}
+    if fake:
+        _account("cin_layer_backward", _cin.backward_work(b, f, h, n, d, x0.element_size()))
+    else:
+        _cin.launch_backward(g, x0, xk, w, dx0, dxk, dw, plan=plan, scratch=scratch)
+    return dx0, dxk, dw
+
+
+class _CinLayer(torch.autograd.Function):
+    """K3 forward, K3-bwd backward (plain versions for CPU tensors).  Where
+    xk is x0 (a CIN's first layer) autograd adds the two gradients."""
+
+    @staticmethod
+    def forward(ctx, x0, xk, w):
+        ctx.save_for_backward(x0, xk, w)
+        return _cin_layer(x0, xk, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x0, xk, w = ctx.saved_tensors
+        return cin_layer_backward(grad.contiguous(), x0, xk, w)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

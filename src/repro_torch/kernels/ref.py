@@ -115,6 +115,28 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return torch.einsum("bmd,mn->bnd", inter, w.to(acc)).to(x0.dtype)
 
 
+def cin_layer_backward(g: torch.Tensor, x0: torch.Tensor, xk: torch.Tensor,
+                       w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``cin_layer``: g = ∂L/∂out (B, Hn, D) → (dx0, dxk,
+    dw).  With ``P[b, h·F+f, d] = Σ_n w[h·F+f, n] · g[b, n, d]``:
+    ``dxk[b,h,d] = Σ_f P·x0[b,f,d]``, ``dx0[b,f,d] = Σ_h P·xk[b,h,d]`` and
+    ``dw[h·F+f, n] = Σ_{b,d} xk[b,h,d] · x0[b,f,d] · g[b,n,d]``.
+
+    P and the outer-product maps ``(B, H·F, D)`` are materialised.  Float32
+    (float64 for a float64 input); each result is stored in its input's
+    dtype."""
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    acc = torch.promote_types(x0.dtype, torch.float32)
+    g_, x0_, xk_ = g.to(acc), x0.to(acc), xk.to(acc)
+    p = torch.einsum("mn,bnd->bmd", w.to(acc), g_).reshape(b, h, f, d)
+    dxk = torch.einsum("bhfd,bfd->bhd", p, x0_)
+    dx0 = torch.einsum("bhfd,bhd->bfd", p, xk_)
+    inter = torch.einsum("bhd,bfd->bhfd", xk_, x0_).reshape(b, h * f, d)
+    dw = torch.einsum("bmd,bnd->mn", inter, g_)
+    return dx0.to(x0.dtype), dxk.to(xk.dtype), dw.to(w.dtype)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *, return_lse: bool = False):
     """Grouped decode attention against a position-masked KV cache.

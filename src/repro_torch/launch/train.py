@@ -1,6 +1,7 @@
 """Generic training launcher: ``--arch <id>`` from the registry.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rmc1 --steps 100
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm --full --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --device cpu
 

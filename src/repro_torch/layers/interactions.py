@@ -77,18 +77,46 @@ def init_cin(generator: torch.Generator, n_fields: int, dim: int, layer_sizes, *
     return params
 
 
+class _FanOut(torch.autograd.Function):
+    """``x`` once for each of ``n`` uses.  The backward adds the uses'
+    gradients in the order of the uses, so that x's gradient does not depend
+    on the order in which autograd finishes them: DTensor's routes put nodes
+    of their own before each use and change that order, and a sum taken in
+    another order is other bits."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        for g in grads[1:]:
+            total = total + g
+        return total, None
+
+
+def fan_out(x: torch.Tensor, n: int) -> tuple[torch.Tensor, ...]:
+    """``n`` uses of ``x`` whose gradients are added in order (``_FanOut``);
+    without autograd, ``x`` itself ``n`` times."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FanOut.apply(x, n)
+    return (x,) * n
+
+
 def cin(params, x0: torch.Tensor) -> torch.Tensor:
     """x0 (B, F, D) → (B, ΣH_k) sum-pooled feature maps.
 
     ``x^k[b,h,d] = Σ_{i,j} W^k[i·F+j, h] · x^{k-1}[b,i,d] · x^0[b,j,d]``: one
     ``kernels.ops.cin_layer`` per layer (the hand-written kernel on the
-    GPU; the JAX package's layer never reaches its Pallas kernel), then the
-    sum over ``D``."""
-    x0 = x0.contiguous()
+    GPU, and its backward kernel when a gradient is needed; the JAX
+    package's layer never reaches its Pallas kernel), then the sum over
+    ``D``.  The first layer takes x0 as both inputs; x0's gradients from
+    its uses are added in a fixed order (``fan_out``)."""
+    xk, *x0s = fan_out(x0.contiguous(), len(params) + 1)
     outs = []
-    xk = x0
-    for w in params:
-        xk = ops.cin_layer(x0, xk, w)                                # (B, H_k, D)
+    for w, x0_k in zip(params, x0s):
+        xk = ops.cin_layer(x0_k, xk, w)                              # (B, H_k, D)
         outs.append(xk.sum(dim=-1))
     return torch.cat(outs, dim=-1)
 

@@ -277,10 +277,11 @@ def _xdeepfm_forward(params, cfg: RecConfig, emb: torch.Tensor) -> torch.Tensor:
     """CIN logit + DNN logit + linear logit (divided by ``embed_dim``);
     xDeepFM has no predict heads."""
     b = emb.shape[0]
-    cin_out = ix.cin(params["cin"], emb)                             # (B, ΣH)
+    emb_cin, emb_dnn, emb_lin = ix.fan_out(emb, 3)                   # gradients added in order
+    cin_out = ix.cin(params["cin"], emb_cin)                         # (B, ΣH)
     logit_cin = linear(params["cin_linear"], cin_out)[..., 0]
-    logit_dnn = mlp(params["dnn"], emb.reshape(b, -1), act="relu")[..., 0]
-    logit_lin = torch.einsum("bfd,f->b", emb, params["lin_w"]) / cfg.embed_dim
+    logit_dnn = mlp(params["dnn"], emb_dnn.reshape(b, -1), act="relu")[..., 0]
+    logit_lin = torch.einsum("bfd,f->b", emb_lin, params["lin_w"]) / cfg.embed_dim
     return logit_cin + logit_dnn + logit_lin
 
 

@@ -192,7 +192,7 @@ def test_live_ratio_gate_passes_a_twin_of_the_same_machine(ratio):
 def test_live_launch_check_refuses_an_off_by_one_count(off):
     per = {"card": {"embedding_bag": 1, "dot_interaction": 1}}
     good = {"embedding_bag": 7, "dot_interaction": 7, "cin_layer": 0, "decode_attention": 0,
-            "embedding_bag_backward": 0, "dot_interaction_backward": 0}
+            "embedding_bag_backward": 0, "dot_interaction_backward": 0, "cin_layer_backward": 0}
     chip_smoke.check_launches("run", good, per, {"card": 7})
     bad = dict(good, dot_interaction=7 + off)
     with pytest.raises(SystemExit, match="launched"):
@@ -202,13 +202,14 @@ def test_live_launch_check_refuses_an_off_by_one_count(off):
 # ------------------------------------------------------------ the train gate
 
 
-def _train_step():
-    """DLRM-RMC2's smoke config on the CPU: 64 samples of Zipf ids over 100
-    rows a table, so rows repeat within bags and across them."""
+def _train_step(arch: str = chip_smoke.TRAIN_ARCH):
+    """DLRM-RMC2's smoke config (or ``arch``'s) on the CPU: 64 samples of
+    Zipf ids over 100 rows a table, so rows repeat within bags and across
+    them."""
     from repro_torch import configs
     from repro_torch.data import synthetic as syn
     from repro_torch.models import recsys
-    cfg = configs.get(chip_smoke.TRAIN_ARCH).smoke_config
+    cfg = configs.get(arch).smoke_config
     params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in syn.recsys_batch(np.random.default_rng(0), cfg, 64).items()}
@@ -234,6 +235,28 @@ def _k2_bwd_without_the_transpose(grad, feats):
     return torch.bmm(s.view(b, f, f), feats)
 
 
+def _k3_bwd_without_dxk(g, x0, xk, w):
+    """A K3-bwd that leaves out xk's gradient: the first layer's x0 then
+    gets half its gradient, the later layers' inputs none."""
+    dx0, dxk, dw = ref.cin_layer_backward(g, x0, xk, w)
+    return dx0, torch.zeros_like(dxk), dw
+
+
+def test_train_gradient_gate_passes_xdeepfm_through_its_cin():
+    """xDeepFM's smoke step on the CPU (K3 and K3-bwd's plain versions)
+    passes against the float64 plain step; two CIN layers a step."""
+    from repro_torch import configs
+    loss_fn, params, batch = _train_step(chip_smoke.TRAIN_CIN_ARCH)
+    _, got = chip_smoke.step_grads(loss_fn, params, batch)
+    with chip_smoke.plain_backward():
+        _, want = chip_smoke.step_grads(loss_fn, params, batch)
+    assert chip_smoke.check_train_grads("cpu", got, want) < 1e-6
+    cfg = configs.get(chip_smoke.TRAIN_CIN_ARCH).config
+    assert chip_smoke.train_launches(cfg) == {
+        "embedding_bag": 1, "embedding_bag_backward": 1, "dot_interaction": 0,
+        "dot_interaction_backward": 0, "cin_layer": 3, "cin_layer_backward": 3}
+
+
 def test_train_gradient_gate_passes_the_port_and_refuses_no_launch():
     """The port's step on the CPU (the plain forward, the plain backward in
     float32) passes against the float64 plain step, and neither launches."""
@@ -248,17 +271,72 @@ def test_train_gradient_gate_passes_the_port_and_refuses_no_launch():
     assert float(want["['tables']"].abs().max()) > 0
 
 
-@pytest.mark.parametrize("fault", ["k1_bwd", "k2_bwd"])
+@pytest.mark.parametrize("fault", ["k1_bwd", "k2_bwd", "k3_bwd"])
 def test_train_gradient_gate_refuses_a_broken_backward(fault):
-    loss_fn, params, batch = _train_step()
+    loss_fn, params, batch = _train_step(chip_smoke.TRAIN_CIN_ARCH if fault == "k3_bwd"
+                                         else chip_smoke.TRAIN_ARCH)
     with chip_smoke.plain_backward():
         _, want = chip_smoke.step_grads(loss_fn, params, batch)
     broken = {"k1_bwd": _k1_bwd_writes_instead_of_adding,
-              "k2_bwd": _k2_bwd_without_the_transpose}[fault]
+              "k2_bwd": _k2_bwd_without_the_transpose,
+              "k3_bwd": _k3_bwd_without_dxk}[fault]
     with chip_smoke.plain_backward(**{fault: broken}):
         _, bad = chip_smoke.step_grads(loss_fn, params, batch)
     with pytest.raises(SystemExit, match="outside"):
         chip_smoke.check_train_grads("broken", bad, want)
+
+
+def test_k3_bwd_checks_reach_the_data_gradient_whole_and_in_runs():
+    """The kernel checks take K3-bwd through both ways its data kernel
+    stores dx0: at each of xDeepFM's layer shapes some batch cuts the data
+    gradient into runs of h and some, train_batch's 65,536 among them,
+    leaves it whole; a whole one is also held against the float32 plain
+    backward."""
+    from repro_torch import configs
+    from repro_torch.kernels import cin
+    d = configs.get("xdeepfm").config.embed_dim
+    assert configs.RECSYS_SHAPES["train_batch"].batch in chip_smoke.CIN_BWD_BATCHES
+    for f, h, hn in chip_smoke.xdeepfm_cin_shapes():
+        splits = {b: cin.backward_plan(b, f, h, hn, d).data_splits
+                  for b in chip_smoke.CIN_BWD_BATCHES}
+        assert max(splits.values()) > 1
+        assert splits[configs.RECSYS_SHAPES["train_batch"].batch] == 1
+        assert any(s == 1 and b <= chip_smoke.CIN_BWD_PLAIN_MAX for b, s in splits.items())
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7])
+def test_cin_backward_float64_in_chunks_is_the_whole_pass(chunk):
+    """The float64 reference the K3-bwd checks use at train_batch, taken a
+    few samples at a time, is the whole float64 backward, and its second
+    half that of the inputs' magnitudes."""
+    rng = np.random.default_rng(4)
+    b, f, h, n, d = 7, 3, 4, 5, 2
+    g, x0, xk = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((b, n, d), (b, f, d), (b, h, d)))
+    w = torch.from_numpy(rng.standard_normal((h * f, n)).astype(np.float32))
+    exact, mag = chip_smoke.cin_backward_float64(g, x0, xk, w, chunk=chunk)
+    want = ref.cin_layer_backward(g.double(), x0.double(), xk.double(), w.double())
+    want_mag = ref.cin_layer_backward(g.double().abs(), x0.double().abs(),
+                                      xk.double().abs(), w.double().abs())
+    for a, e in zip(exact + mag, want + want_mag):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("lost", [0, 1, 3])
+def test_a_step_profile_counts_the_kernel_records_its_trace_lost(lost):
+    """Each launch call on the host (runtime or driver) whose correlation id
+    no device record carries is one kernel record lost; copies, aten ops
+    and kernels without a launch call count nothing."""
+    from types import SimpleNamespace as E
+    from torch.autograd import DeviceType
+    names = ["cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC", "cuLaunchKernel"]
+    events = [E(id=i, device_type=DeviceType.CPU, name=names[i % 4]) for i in range(10)]
+    events += [E(id=i, device_type=DeviceType.CUDA, name=f"kernel_{i}") for i in range(lost, 10)]
+    events += [E(id=20, device_type=DeviceType.CPU, name="cudaMemcpyAsync"),
+               E(id=3, device_type=DeviceType.CPU, name="aten::mm"),
+               E(id=21, device_type=DeviceType.CUDA, name="Memcpy HtoD")]
+    assert chip_smoke.lost_kernel_records(events) == lost
 
 
 @pytest.mark.parametrize("off", [-1, 1])

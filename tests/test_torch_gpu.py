@@ -19,7 +19,7 @@ from repro_torch.models import lm, recsys
 
 pytestmark = pytest.mark.gpu
 # serving launches no backward kernel
-NO_BWD = {"embedding_bag_backward": 0, "dot_interaction_backward": 0}
+NO_BWD = {"embedding_bag_backward": 0, "dot_interaction_backward": 0, "cin_layer_backward": 0}
 
 
 @pytest.fixture
@@ -226,7 +226,7 @@ def test_embedding_bag_autograd_launches_k1_and_k1_bwd(dev, dtype, stacked):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": 0, "cin_layer": 0,
                                    "decode_attention": 0, "embedding_bag_backward": 1,
-                                   "dot_interaction_backward": 0}
+                                   "dot_interaction_backward": 0, "cin_layer_backward": 0}
     want = ref.embedding_bag_backward(g.double().reshape(17, -1, 32),
                                       idx.reshape(17, -1, 9), 400).reshape(t.shape)
     assert grad.dtype == dtype
@@ -307,21 +307,31 @@ def test_dot_interaction_autograd_launches_k2_and_k2_bwd(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 1, "cin_layer": 0,
                                    "decode_attention": 0, "embedding_bag_backward": 0,
-                                   "dot_interaction_backward": 1}
+                                   "dot_interaction_backward": 1, "cin_layer_backward": 0}
     torch.testing.assert_close(grad.double(), ref.dot_interaction_backward(g.double(), x.double()),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_kernels_without_a_backward_raise_under_grad(dev):
-    """K3, K4 and the full Gram product have no backward kernel: on a CUDA
+    """K4 and the full Gram product have no backward kernel: on a CUDA
     tensor that needs a gradient they raise, never hand back a result that
-    autograd cannot see through; under no_grad they run."""
+    autograd cannot see through.  K3 has one: under grad a call launches one
+    K3, and ``.backward()`` one K3-bwd; under no_grad it launches K3 alone."""
     x0, xk, w = (torch.randn(s, device=dev) for s in ((2, 3, 4), (2, 5, 4), (15, 6)))
     w.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.cin_layer(x0, xk, w)
+    ops.reset_launch_counts()
+    out = ops.cin_layer(x0, xk, w)
+    torch.cuda.synchronize()
+    assert (ops.launch_counts()["cin_layer"], ops.launch_counts()["cin_layer_backward"]) == (1, 0)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (ops.launch_counts()["cin_layer"], ops.launch_counts()["cin_layer_backward"]) == (1, 1)
+    torch.testing.assert_close(w.grad, ref.cin_layer_backward(torch.ones_like(out), x0, xk,
+                                                              w.detach())[2],
+                               rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         assert ops.cin_layer(x0, xk, w).shape == (2, 6, 4)
+    assert (ops.launch_counts()["cin_layer"], ops.launch_counts()["cin_layer_backward"]) == (2, 1)
     feats = torch.randn((2, 3, 4), device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="gram"):
         ops.gram(feats)
@@ -331,11 +341,12 @@ def test_kernels_without_a_backward_raise_under_grad(dev):
         ops.decode_attention(q, kv, kv, torch.tensor([2], dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("name", ["dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3", "wnd"])
+@pytest.mark.parametrize("name", ["dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3", "wnd", "xdeepfm"])
 def test_train_step_on_gpu_matches_cpu(dev, name):
-    """One loss and every leaf's gradient of a paper smoke config on the
-    card (K1, K1-bwd, and for the DLRMs K2, K2-bwd, once each) against the
-    plain versions on the CPU, float32 within 1e-4."""
+    """One loss and every leaf's gradient of a smoke config on the card (K1,
+    K1-bwd, for the DLRMs K2, K2-bwd once each, for xDeepFM a K3 and a
+    K3-bwd a CIN layer) against the plain versions on the CPU, float32
+    within 1e-4."""
     from repro_torch.train.microbatch import value_and_grad
     from repro_torch.utils import leaves_with_paths
     cfg = configs.get(name).smoke_config
@@ -349,9 +360,10 @@ def test_train_step_on_gpu_matches_cpu(dev, name):
     loss, got = value_and_grad(loss_fn, params_d, {k: v.to(dev) for k, v in batch.items()})
     torch.cuda.synchronize()
     dot = int(cfg.interaction == "dot")
-    assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": dot, "cin_layer": 0,
+    cin = len(cfg.cin_layers) if cfg.interaction == "cin" else 0
+    assert ops.launch_counts() == {"embedding_bag": 1, "dot_interaction": dot, "cin_layer": cin,
                                    "decode_attention": 0, "embedding_bag_backward": 1,
-                                   "dot_interaction_backward": dot}
+                                   "dot_interaction_backward": dot, "cin_layer_backward": cin}
     torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-4)
     for (k, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4, msg=k)
@@ -456,6 +468,88 @@ def test_cin_layer_kernel_splits_a_large_h_to_fit(dev):
     x0, xk, w = _cin_inputs(dev, b, f, h, hn, d, torch.float32)
     torch.testing.assert_close(ops.cin_layer(x0, xk, w), ref.cin_layer(x0, xk, w),
                                rtol=1e-4, atol=1e-4)
+
+
+CIN_BWD_SHAPES = [
+    (8, 6, 5, 7, 128), (16, 10, 10, 4, 64), (4, 3, 8, 16, 130),   # tests/test_kernels.py
+    (4, 6, 16, 8, 10), (1, 39, 39, 200, 10), (65, 39, 200, 200, 10), (3, 1, 1, 1, 1),
+    (1, 39, 200, 200, 10), (64, 39, 200, 200, 10), (512, 39, 200, 200, 10),   # xDeepFM
+    (2, 5, 7, 300, 3), (3, 4, 5, 73, 2),
+    (9, 2, 3, 16, 1), (5, 4, 4, 7, 1),                            # D = 1; K below a stage
+    (1600, 40, 600, 8, 10),                                       # K = 24,000, split
+    (50, 100, 3, 16, 5), (20, 176, 2, 8, 3),      # one block an SM; the largest F that fits
+    (8192, 39, 39, 200, 10), (8192, 39, 200, 200, 10),   # xDeepFM, the data gradient whole
+    (6800, 7, 9, 33, 10),                         # whole, M = 68,000 not a multiple of 128
+]
+
+
+def _cin_bwd_check(got, x0, xk, w, g, dtype):
+    """Each gradient against the plain backward on the card: float32 within
+    1e-4 of the largest value (rtol = 1e-4 besides), bfloat16 (the float32
+    result cast down) 2e-2.  In float32 also against float64 within
+    ``cin.backward_error_bound``'s c · Σ|terms|."""
+    want = ref.cin_layer_backward(g, x0, xk, w)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, e in zip(("dx0", "dxk", "dw"), got, want):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        top = float(e.float().abs().max())
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol, atol=tol * max(top, 1e-30),
+                                   msg=name)
+    if dtype == torch.float32:
+        exact = ref.cin_layer_backward(g.double(), x0.double(), xk.double(), w.double())
+        mag = ref.cin_layer_backward(g.double().abs(), x0.double().abs(), xk.double().abs(),
+                                     w.double().abs())
+        from repro_torch.kernels import cin
+        bound = cin.backward_error_bound(x0.shape[0], x0.shape[1], xk.shape[1], w.shape[1],
+                                         x0.shape[2])
+        for name, a, e, m in zip(("dx0", "dxk", "dw"), got, exact, mag):
+            assert bool(((a.double() - e).abs() <= bound[name] * m).all()), name
+
+
+@pytest.mark.parametrize("b,f,h,hn,d", CIN_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cin_layer_backward_kernel(dev, b, f, h, hn, d, dtype):
+    """K3-bwd over the forward's sweep, a K of 24,000 cut into runs, F up to
+    the 176 a block's shared memory holds, and batches of 6,800 and 8,192
+    whose data gradient is not cut into runs of h (dx0 stored straight from
+    shared memory, as at train_batch's 65,536): against the plain backward
+    and, in float32, against float64 (``_cin_bwd_check``); one launch a
+    call."""
+    x0, xk, w = _cin_inputs(dev, b, f, h, hn, d, dtype)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(b, hn, d)).astype(np.float32)).to(
+        dev, dtype)
+    before = ops.launch_counts()["cin_layer_backward"]
+    got = ops.cin_layer_backward(g, x0, xk, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cin_layer_backward"] == before + 1
+    _cin_bwd_check(got, x0, xk, w, g, dtype)
+
+
+@pytest.mark.parametrize("b", [1, 512, 4096, 8192])
+def test_cin_layer_backward_kernel_same_bits_every_launch(dev, b):
+    """No atomics and sums in an order fixed by the shapes: a second launch
+    on the same inputs gives the same bits (B = 1, 512 and 4,096 cut both
+    products into runs; 8,192 only the weight gradient's rows)."""
+    x0, xk, w = _cin_inputs(dev, b, 39, 200, 200, 10, torch.float32)
+    g = torch.randn((b, 200, 10), device=dev)
+    first = ops.cin_layer_backward(g, x0, xk, w)
+    again = ops.cin_layer_backward(g, x0, xk, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_cin_layer_backward_through_autograd_adds_the_first_layers_gradients(dev):
+    """A CIN's first layer takes x0 as both inputs: autograd adds K3-bwd's
+    dx0 and dxk into x0's gradient, against the plain backward's sum."""
+    x0, _, w = _cin_inputs(dev, 33, 39, 39, 200, 10, torch.float32)
+    g = torch.randn((33, 200, 10), device=dev)
+    x0.requires_grad_()
+    ops.reset_launch_counts()
+    (got,) = torch.autograd.grad(ops.cin_layer(x0, x0, w), x0, g)
+    torch.cuda.synchronize()
+    assert (ops.launch_counts()["cin_layer"], ops.launch_counts()["cin_layer_backward"]) == (1, 1)
+    dx0, dxk, _ = ref.cin_layer_backward(g, x0.detach(), x0.detach(), w)
+    torch.testing.assert_close(got, dx0 + dxk, rtol=1e-4, atol=1e-4 * float((dx0 + dxk).abs().max()))
 
 
 def _decode_inputs(dev, b, hq, hkv, d, t, dtype, seed=3):
@@ -998,7 +1092,8 @@ def test_recsys_train_cell_on_dtensors_is_its_unsharded_step(nccl_world_of_one):
     batch = to_device(syn.recsys_batch(np.random.default_rng(0), cfg, 256), dev)
     sharded = cell.place(tree_map(torch.clone, params), tree_map(torch.clone, state), batch)
     one = {"embedding_bag": 1, "dot_interaction": 1, "embedding_bag_backward": 1,
-           "dot_interaction_backward": 1, "cin_layer": 0, "decode_attention": 0}
+           "dot_interaction_backward": 1, "cin_layer": 0, "decode_attention": 0,
+           "cin_layer_backward": 0}
     for args in (sharded, (params, state, batch)):
         ops.reset_launch_counts()
         loss = cell.fn(*args)[2]
@@ -1122,6 +1217,16 @@ def test_accounted_cin_layer_is_its_timing_figure(smoke_script):
     got = _counted_on_fake_cuda(ops.cin_layer, ((b, f, d), torch.float32),
                                 ((b, h, d), torch.float32), ((h * f, hn), torch.float32))
     assert _kernel_work(got, "cin_layer") == ({"tf32": t["tensor_core_flops"]}, t["bytes"])
+
+
+def test_accounted_cin_layer_backward_is_its_timing_figure(smoke_script):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, f, h, hn, d = 8, 5, 4, 6, 10
+    t = smoke_script.time_cin_layer_backward(gen, torch.device("cuda"), b, f, h, hn, d)
+    got = _counted_on_fake_cuda(ops.cin_layer_backward, ((b, hn, d), torch.float32),
+                                ((b, f, d), torch.float32), ((b, h, d), torch.float32),
+                                ((h * f, hn), torch.float32))
+    assert _kernel_work(got, "cin_layer_backward") == ({"fp32": t["flops"]}, t["bytes"])
 
 
 def test_accounted_decode_attention_is_its_timing_figure(smoke_script):

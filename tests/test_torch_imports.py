@@ -111,13 +111,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(out, torch.tensor([[[1.0, 2.0], [1.0, 2.0]]]))
     assert ops.launch_counts() == {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0,
                                    "decode_attention": 0, "embedding_bag_backward": 0,
-                                   "dot_interaction_backward": 0}
+                                   "dot_interaction_backward": 0, "cin_layer_backward": 0}
 
 
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["cin.cu", "decode_attention.cu", "embedding_bag.cu", "interaction.cu"]
+    assert names == ["cin.cu", "cin_backward.cu", "decode_attention.cu", "embedding_bag.cu",
+                     "interaction.cu"]
     for p in _build.CSRC.glob("*.cu"):
         text = p.read_text()
         assert "__global__" in text and 'extern "C"' in text

@@ -25,7 +25,7 @@ MODELS = ["ncf", "wnd", "mt-wnd", "dlrm-rmc1", "dlrm-rmc2", "dlrm-rmc3", "din", 
 ZOO = ["xdeepfm", "autoint", "mind", "bert4rec"]
 TOL = dict(rtol=2e-5, atol=2e-5)
 NO_LAUNCH = {"embedding_bag": 0, "dot_interaction": 0, "cin_layer": 0, "decode_attention": 0,
-             "embedding_bag_backward": 0, "dot_interaction_backward": 0}
+             "embedding_bag_backward": 0, "dot_interaction_backward": 0, "cin_layer_backward": 0}
 
 
 def _tensors(batch: dict) -> dict:

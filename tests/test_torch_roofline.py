@@ -231,11 +231,18 @@ def test_autograd_on_fake_tensors_counts_both_kernels(no_build):
     assert c.kernels["dot_interaction_backward"]["bytes"] == ix_kernel.backward_work(6, 3, 8, 4)[1]
 
 
-def test_a_cin_layer_that_needs_a_gradient_counts_the_plain_version(no_build):
+def test_a_cin_layer_that_needs_a_gradient_counts_k3_and_k3_bwd(no_build):
+    """A gradient step through K3 on fake tensors counts one K3 and one
+    K3-bwd at their ``work()``: no plain version's operations stand in for
+    either."""
     x0, xk, w = _fake(((4, 6, 10), F32), ((4, 5, 10), F32), ((30, 9), F32))
     w.requires_grad_()
     _, c = analysis.count(lambda a, b, m: ops.cin_layer(a, b, m).sum().backward(), (x0, xk, w))
-    assert "cin_layer" not in c.kernels and c.flops_by_unit["fp32"] > 0
+    assert {k: v["calls"] for k, v in c.kernels.items()} == {"cin_layer": 1,
+                                                              "cin_layer_backward": 1}
+    for name, work in (("cin_layer", cin_kernel.work(4, 6, 5, 9, 10, 4)),
+                       ("cin_layer_backward", cin_kernel.backward_work(4, 6, 5, 9, 10, 4))):
+        assert (c.kernels[name]["flops_by_unit"], c.kernels[name]["bytes"]) == work
 
 
 # -------------------------------------------------------- eager loops
