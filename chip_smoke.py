@@ -15,9 +15,10 @@ What it does, one JSON line per phase:
                  give it, and timings at the DLRM-RMC2 (and for K2 also
                  RMC1/RMC3), xDeepFM and qwen2-0.5b shapes (kernel,
                  bound, plain version, library call); K3-bwd at xDeepFM's
-                 layer shapes, B = 512 and 4,096, against its plain version
-                 and float64, the same bits on a second launch, and timed
-                 at B = 512 and 65,536
+                 layer shapes, B = 512 to 65,536, against its plain version
+                 (to 8,192) and float64, the same bits on a second launch, a
+                 one-pass TF32 witness at least 10x further off, and timed
+                 at B = 512 and 65,536 (the library yardstick in chunks)
   parity         forward of every recsys smoke config (paper models and
                  zoo), and prefill + 4 decode steps of every dense LM smoke
                  config, on the card (kernels) against the same weights and
@@ -148,7 +149,7 @@ What it does, one JSON line per phase:
                  AdamW state: the same bits or the gradient gate's TOL), the
                  padded step's loss against the unpadded one's; within 300 s
                  more
-  roofline       the cells phase's four training and serving steps counted
+  roofline       the cells phase's five training and serving steps counted
                  on fake tensors in a
                  fake world of one rank (roofline/analysis.py: per-rank
                  FLOPs by unit, bytes, collectives, each hand-written
@@ -232,6 +233,7 @@ no result line:
   lm_moe       the lm_moe phase
   remote       the remote phase
   k2_timings   K2 timed at the DLRM shapes
+  k3_bwd_timings  K3-bwd timed at xDeepFM's layer shapes, B = 512 and 65,536
   bwd_timings  K1-bwd (Zipf and uniform ids) and K2-bwd timed at RMC2's
                shapes, B = 1,024 and train_batch's 65,536
   k4_timings   K4 timed at its four shapes (decode_32k at pos = T and with
@@ -851,6 +853,7 @@ CIN_BWD_BATCHES = (512, 4096, 8192, 65_536)   # K3-bwd's checks: serve_p99's bat
 CIN_BWD_PLAIN_MAX = 8192   # the largest batch held against the float32 plain backward whole
 CIN_BWD_CHUNK = 2048       # samples a float64 pass of the plain backward
 CIN_BWD_TIMED = (512, 65_536)          # its timings: serve_p99's and train_batch's
+CIN_BWD_LIBRARY_BYTES = 12 * 2**30     # the library yardstick's (B·D, H·F) tensors, at most
 
 
 def cin_backward_inputs(gen, dev, b: int, f: int, h: int, hn: int, d: int,
@@ -879,6 +882,42 @@ def cin_backward_float64(g, x0, xk, w, chunk: int = CIN_BWD_CHUNK) -> tuple[tupl
     return outs[0], outs[1]
 
 
+def fp32_backward_bound(b: int, f: int, h: int, n: int, d: int) -> dict[str, float]:
+    """The float64 bound K3-bwd was held to while it ran float32 on the CUDA
+    cores (the float32 kernel's ``backward_error_bound``, at this plan's
+    runs), kept for the history: gamma_L, u = 2^-24, of each result's longest chain of
+    roundings: dxk's N products summed into P, then its F terms; dx0's N,
+    then its H terms within a run of h, then the runs; dw's rows of a run,
+    then the runs."""
+    p = cin_kernel.backward_plan(b, f, h, n, d)
+    u = 2.0 ** -24
+
+    def gamma(chain: int) -> float:
+        return chain * u / (1 - chain * u)
+    return {"dx0": gamma(n + h + p.data_splits + 3), "dxk": gamma(n + f + 3),
+            "dw": gamma(p.row_run + p.weight_splits + 3)}
+
+
+def one_pass_tf32_backward(g, x0, xk, w) -> tuple:
+    """The witness of K3-bwd: its gradients with both products as one TF32
+    pass (P = g·wᵀ and dw = Aᵀ·g through cuBLAS with TF32 allowed, here and
+    nowhere else; the contractions in float32), what a lost lo pass would
+    give."""
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    rows = g.transpose(1, 2).reshape(b * d, n)
+    a = torch.einsum("bhd,bfd->bdhf", xk, x0).reshape(b * d, h * f)
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        p = torch.matmul(rows, w.t())
+        dw = torch.matmul(a.t(), rows)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    p = p.reshape(b, d, h, f)
+    return (torch.einsum("bdhf,bhd->bfd", p, xk), torch.einsum("bdhf,bfd->bhd", p, x0), dw)
+
+
 def check_cin_layer_backward(gen, dev) -> tuple[list, float]:
     """K3-bwd at each of xDeepFM's layer shapes and each CIN_BWD_BATCHES
     batch (its plan: the data gradient cut into runs of h at 512 and 4,096,
@@ -887,10 +926,16 @@ def check_cin_layer_backward(gen, dev) -> tuple[list, float]:
     (float32 by ``grad_compare``; bfloat16, at B = 512, the float32 result
     cast down, within 2e-2 of itself and of the largest value); in float32
     against float64 within ``cin_kernel.backward_error_bound``'s
-    c · Σ|terms| (``cin_backward_float64``), at train_batch's 65,536 too;
-    and the same bits on a second launch."""
+    c · Σ|terms| (``cin_backward_float64``), at train_batch's 65,536 too,
+    with each result's share of the float32 kernel's bound beside it
+    (``fp32_backward_bound``); the same bits on a second launch; and at
+    B = 512 and K = 7,800 the one-pass TF32 witness
+    (``one_pass_tf32_backward``) at least 10× further from the float64
+    value than K3-bwd in each gradient, which shows the check can see a
+    lost pass."""
     checks, main_err = [], 0.0
     d = configs.get("xdeepfm").config.embed_dim
+    k_max = max(hh * ff for ff, hh, _ in xdeepfm_cin_shapes())
     for b in CIN_BWD_BATCHES:
         for f, h, hn in xdeepfm_cin_shapes():
             for dtype in (torch.float32, torch.bfloat16) if b == CIN_BWD_BATCHES[0] else (
@@ -915,17 +960,34 @@ def check_cin_layer_backward(gen, dev) -> tuple[list, float]:
                 if dtype == torch.float32:
                     exact, mag = cin_backward_float64(g, x0, xk, w)
                     bound = cin_kernel.backward_error_bound(b, f, h, hn, d)
-                    for name, a, e, m in zip(("dx0", "dxk", "dw"), got, exact, mag):
+                    old = fp32_backward_bound(b, f, h, hn, d)
+                    witness = (one_pass_tf32_backward(g, x0, xk, w)
+                               if b == CIN_BWD_BATCHES[0] and h * f == k_max else None)
+                    for i, (name, a, e, m) in enumerate(zip(("dx0", "dxk", "dw"), got, exact,
+                                                            mag)):
                         dev64 = (a.double() - e).abs()
                         if not bool((dev64 <= bound[name] * m).all()):
                             fail(f"cin_layer_backward {name} {b, f, h, hn, d}: outside "
                                  f"{bound[name]:.3e}·Σ|terms| of the float64 value")
-                        row[f"{name}_against_float64_max_abs_err"] = float(dev64.max())
+                        top = float(dev64.max())
+                        row[f"{name}_against_float64_max_abs_err"] = top
                         row[f"{name}_largest_share_of_bound"] = float(
                             (dev64 / (bound[name] * m).clamp_min(1e-300)).max())
+                        row[f"{name}_largest_share_of_fp32_bound"] = float(
+                            (dev64 / (old[name] * m).clamp_min(1e-300)).max())
+                        if witness is not None:
+                            one = float((witness[i].double() - e).abs().max())
+                            ratio = one / max(top, 1e-30)
+                            if ratio < 10:
+                                fail(f"cin_layer_backward {name} {b, f, h, hn, d}: the one-pass "
+                                     f"TF32 witness is only {ratio:.2f}x further from float64 "
+                                     f"than K3-bwd (needs 10x)")
+                            row[f"{name}_one_pass_tf32_against_float64_max_abs_err"] = one
+                            row[f"{name}_witness_ratio"] = ratio
                         del dev64
                     row["float64_bound"] = {k: f"{v:.4e}*sum|terms|" for k, v in bound.items()}
-                    del exact, mag
+                    row["fp32_bound"] = {k: f"{v:.4e}*sum|terms|" for k, v in old.items()}
+                    del exact, mag, witness
                     again = ops.cin_layer_backward(g, x0, xk, w)
                     torch.cuda.synchronize()
                     if not all(torch.equal(a, c) for a, c in zip(again, got)):
@@ -951,21 +1013,37 @@ def library_cin_backward(g, x0, xk, w) -> tuple:
     return torch.autograd.grad(out, (x0_, xk_, w_), g.transpose(1, 2).reshape(b * d, n))
 
 
+def library_cin_backward_chunked(g, x0, xk, w, chunk: int) -> tuple:
+    """``library_cin_backward`` ``chunk`` samples at a time, so that its
+    four (B·D, H·F) float32 tensors fit the card at train_batch's 65,536:
+    dx0 and dxk each chunk's own, dw the chunks' sum in order."""
+    dx0, dxk, dw = torch.empty_like(x0), torch.empty_like(xk), torch.zeros_like(w)
+    for lo in range(0, x0.shape[0], chunk):
+        part = slice(lo, lo + chunk)
+        dx0[part], dxk[part], dwc = library_cin_backward(g[part], x0[part], xk[part], w)
+        dw += dwc
+    return dx0, dxk, dw
+
+
 def time_cin_layer_backward(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
     """K3-bwd at one layer's shape.  B = 512: CUDA-graph replays over four
     rotating input sets (w one matrix), beside the plain backward (graph
     replays too) and the library yardstick (eager calls: autograd inside).
-    B = 65,536: eager calls on the device's clock (a
-    call is tens of ms), no plain version (its two (B, H·F, D) float32
-    tensors, P and the maps, are 40.9 GB at K = 7,800), the library
-    yardstick where its four
-    (B·D, H·F) float32 tensors fit the card's free memory (else null, and
-    why).  The bound: float32 on the CUDA cores (``backward_work``)."""
+    B = 65,536: eager calls on the device's clock (a call is tens of ms), no
+    plain version (its two (B, H·F, D) float32 tensors, P and the maps, are
+    40.9 GB at K = 7,800), the library yardstick in chunks of samples whose
+    four (B·D, H·F) float32 tensors take at most CIN_BWD_LIBRARY_BYTES
+    (``library_cin_backward_chunked``).  The bound: ``backward_work``'s
+    (3xTF32 on the tensor cores, forming A and the contractions float32 on
+    the CUDA cores); beside it the bound of the float32 CUDA-core kernel
+    K3-bwd replaced, max(bytes, (4·M·N·K + 5·M·K) / 67 TFLOP/s)."""
     big = b > CIN_BWD_TIMED[0]
     n_sets = 1 if big else 4
     sets = [cin_backward_inputs(gen, dev, b, f, h, hn, d) for _ in range(n_sets)]
     w = sets[0][3]
     work = cin_kernel.backward_work(b, f, h, hn, d, 4)
+    m, k = b * d, h * f
+    fp32_flops = 4 * m * hn * k + 5 * m * k
 
     def kernel(i):
         g, x0, xk, _ = sets[i % n_sets]
@@ -975,31 +1053,29 @@ def time_cin_layer_backward(gen, dev, b: int, f: int, h: int, hn: int, d: int) -
         g, x0, xk, _ = sets[i % n_sets]
         return ref.cin_layer_backward(g, x0, xk, w)
 
+    chunk = max(1, min(b, CIN_BWD_LIBRARY_BYTES // (4 * d * k * 4)))
+
     def library(i):
         g, x0, xk, _ = sets[i % n_sets]
-        return library_cin_backward(g, x0, xk, w)
+        if chunk >= b:
+            return library_cin_backward(g, x0, xk, w)
+        return library_cin_backward_chunked(g, x0, xk, w, chunk)
 
-    res = {"shape": [b, f, h, hn, d], "flops": work[0]["fp32"], "bytes": work[1],
+    res = {"shape": [b, f, h, hn, d], "flops_by_unit": work[0], "bytes": work[1],
            "plan": cin_kernel.backward_plan(b, f, h, hn, d)._asdict(),
            "bound_ms": bound(work)[0], "bound_by": bound(work)[1],
-           "bound_of": "float32 on the CUDA cores at 67 TFLOP/s, or bytes at 3.35 TB/s",
-           "tf32x3_bound_ms": 3 * work[0]["fp32"] / analysis.PEAKS["tf32"] * 1e3}
+           "bound_of": "3xTF32 tensor-core operations at 494.7 TFLOP/s plus the float32 "
+                       "contractions at 67 TFLOP/s, or bytes at 3.35 TB/s",
+           "tf32x3_bound_ms": 3 * 4 * m * hn * k / analysis.PEAKS["tf32"] * 1e3,
+           "fp32_cuda_core_bound_ms": max(work[1] / HBM_BYTES_PER_S,
+                                          fp32_flops / FP32_FLOP_PER_S) * 1e3,
+           "library_chunk": chunk}
     if big:
         res["kernel_ms"] = call_ms(kernel, n_iter=3, warmup=1)
         res["plain_ms"] = None
         res["plain_note"] = (f"not timed: the plain backward's two (B, H·F, D) float32 "
                              f"tensors are {2 * b * h * f * d * 4 / 1e9:.1f} GB")
-        # the operand, its gradient and the einsum's two copies of that gradient
-        # (an out-of-memory error at 59 GB allocated showed the fourth)
-        need = 4 * b * d * h * f * 4
-        free = torch.cuda.mem_get_info(dev)[0]
-        if need < 0.9 * free:
-            res["library_ms"] = call_ms(library, n_iter=2, warmup=1)
-        else:
-            res["library_ms"] = None
-            res["library_note"] = (f"not timed: its four (B·D, H·F) float32 tensors, "
-                                   f"{need / 1e9:.1f} GB, do not fit 0.9 of the card's "
-                                   f"{free / 1e9:.1f} GB free")
+        res["library_ms"] = call_ms(library, n_iter=2, warmup=1)
     else:
         res["kernel_ms"] = device_ms(kernel)
         res["kernel_call_ms"] = call_ms(kernel)
@@ -1007,6 +1083,7 @@ def time_cin_layer_backward(gen, dev, b: int, f: int, h: int, hn: int, d: int) -
         res["library_ms"] = call_ms(library)
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["tf32x3_share_of_bound"] = res["tf32x3_bound_ms"] / res["kernel_ms"]
+    res["fp32_cuda_core_share_of_bound"] = res["fp32_cuda_core_bound_ms"] / res["kernel_ms"]
     del sets
     torch.cuda.empty_cache()
     return res
@@ -4304,12 +4381,14 @@ ROOFLINE_SHARE_GATE = 1.05
 ROOFLINE_SECONDS = 300.0
 
 
-def cell_kernel_work(cfg, batch: int, rows: float | None = None) -> dict[str, tuple[int, tuple]]:
+def cell_kernel_work(cfg, batch: int, rows: float | None = None, *,
+                     train: bool) -> dict[str, tuple[int, tuple]]:
     """{kernel: (calls a step, its summed ``work()``)} of a recommendation
-    cell's step (``cfg`` float32) at ``batch``: what the count must hold for
-    each kernel the step launches.  With ``rows`` (the distinct rows of
-    the step's ids), K1 and K1-bwd move those rows in place of every
-    lookup's: the work the data needs."""
+    cell's step (``cfg`` float32) at ``batch``, a training step's backward
+    kernels with ``train``: what the count must hold for each kernel the
+    step launches.  With ``rows`` (the distinct rows of the step's ids), K1
+    and K1-bwd move those rows in place of every lookup's: the work the
+    data needs."""
 
     def total(works):
         flops: dict = {}
@@ -4320,16 +4399,21 @@ def cell_kernel_work(cfg, batch: int, rows: float | None = None) -> dict[str, tu
 
     f, h, d = cfg.n_tables, cfg.hotness, cfg.embed_dim
     out = {"embedding_bag": (1, eb_kernel.work(batch, f, h, d, 4, rows=rows))}
+    if train:
+        out["embedding_bag_backward"] = (1, eb_kernel.backward_work(batch, f, h, d, 4,
+                                                                    rows=rows))
     if cfg.interaction == "dot":
         n = recsys._num_feature_rows(cfg)
         out["dot_interaction"] = (1, ix_kernel.work(batch, n, d, 4))
-        out["embedding_bag_backward"] = (1, eb_kernel.backward_work(batch, f, h, d, 4,
-                                                                    rows=rows))
-        out["dot_interaction_backward"] = (1, ix_kernel.backward_work(batch, n, d, 4))
+        if train:
+            out["dot_interaction_backward"] = (1, ix_kernel.backward_work(batch, n, d, 4))
     if cfg.interaction == "cin":
-        hs = (f,) + tuple(cfg.cin_layers[:-1])
-        layers = [cin_kernel.work(batch, f, hk, hn, d, 4) for hk, hn in zip(hs, cfg.cin_layers)]
-        out["cin_layer"] = (len(layers), total(layers))
+        layers = list(zip((f,) + tuple(cfg.cin_layers[:-1]), cfg.cin_layers))
+        out["cin_layer"] = (len(layers), total([cin_kernel.work(batch, f, hk, hn, d, 4)
+                                                for hk, hn in layers]))
+        if train:
+            out["cin_layer_backward"] = (len(layers), total(
+                [cin_kernel.backward_work(batch, f, hk, hn, d, 4) for hk, hn in layers]))
     return out
 
 
@@ -4401,33 +4485,35 @@ def cell_roofline(cell, specs: tuple | None, steps_ms: dict[str, float], launche
 
 
 def roofline_phase(cells_line: dict) -> dict:
-    """The cells phase's four training and serving steps and its
+    """The cells phase's five training and serving steps and its
     decode_32k step counted (``roofline.analysis``) in a fake world of one
     rank on a (1, 1) mesh of the card's device, at the sizes the phase ran,
     and held to the steps it measured (``roofline_gate``); fails past
     ROOFLINE_SECONDS.  Then ``fit_entry``."""
     t0 = time.monotonic()
-    rmc2, xdfm, moe = (cells_line[k] for k in ("rmc2_train_batch", "xdeepfm_serve_p99",
-                                                "granite_moe_train_4k"))
+    rmc2, xdfm_train, xdfm, moe = (cells_line[k] for k in (
+        "rmc2_train_batch", "xdeepfm_train_batch", "xdeepfm_serve_p99", "granite_moe_train_4k"))
     line = {"phase": "roofline", "mesh": [1, 1], "gate": ROOFLINE_SHARE_GATE,
             "peaks": {"hbm_bytes_per_s": analysis.HBM_BW, **analysis.PEAKS,
                       "nvlink_bytes_per_s": analysis.NVLINK_BW}}
     with dryrun.fake_world(1):
         mesh = mesh_lib.make_host_mesh(1, 1)
-        arch, shape = CELLS_TRAIN
-        line["rmc2_train_batch"] = cell_roofline(
-            steps_lib.build_cell(arch, shape, mesh), None,
-            {"dtensor": rmc2["sharded"]["step_ms"], "plain": rmc2["unsharded"]["step_ms"]},
-            rmc2["launches_a_step"], cell_kernel_work(configs.get(arch).config, rmc2["batch"]),
-            rmc2["max_memory_allocated_gb"],
-            cell_kernel_work(configs.get(arch).config, rmc2["batch"], rmc2["distinct_rows"]))
-        arch, shape = CELLS_SERVE
-        line["xdeepfm_serve_p99"] = cell_roofline(
-            steps_lib.build_cell(arch, shape, mesh), None,
-            {"dtensor": xdfm["sharded_ms"], "plain": xdfm["unsharded_ms"]},
-            xdfm["launches_a_call"], cell_kernel_work(configs.get(arch).config, xdfm["batch"]),
-            xdfm["max_memory_allocated_gb"],
-            cell_kernel_work(configs.get(arch).config, xdfm["batch"], xdfm["distinct_rows"]))
+        for key, (arch, shape), run, train in (
+                ("rmc2_train_batch", CELLS_TRAIN, rmc2, True),
+                ("xdeepfm_train_batch", CELLS_TRAIN_CIN, xdfm_train, True),
+                ("xdeepfm_serve_p99", CELLS_SERVE, xdfm, False)):
+            cfg = configs.get(arch).config
+            if train:
+                steps_ms = {"dtensor": run["sharded"]["step_ms"],
+                            "plain": run["unsharded"]["step_ms"]}
+            else:
+                steps_ms = {"dtensor": run["sharded_ms"], "plain": run["unsharded_ms"]}
+            line[key] = cell_roofline(
+                steps_lib.build_cell(arch, shape, mesh), None, steps_ms,
+                run["launches_a_step" if train else "launches_a_call"],
+                cell_kernel_work(cfg, run["batch"], train=train),
+                run["max_memory_allocated_gb"],
+                cell_kernel_work(cfg, run["batch"], run["distinct_rows"], train=train))
         arch, shape = CELLS_LM
         cfg = configs.get(arch).config
         cell = steps_lib.build_cell(arch, shape, mesh)
@@ -4582,6 +4668,11 @@ ONLY = {
     "k2_timings": lambda args, dev, gen: {
         "phase": "k2_timings", "timings": time_dot_interactions(gen, dev, other_store=False)},
     "bwd_timings": lambda args, dev, gen: bwd_timings(args.seed, dev, gen),
+    "k3_bwd_timings": lambda args, dev, gen: {
+        "phase": "k3_bwd_timings",
+        "timings": [time_cin_layer_backward(gen, dev, b, f, h, hn,
+                                            configs.get("xdeepfm").config.embed_dim)
+                    for b in CIN_BWD_TIMED for f, h, hn in xdeepfm_cin_shapes()]},
     "k4_timings": lambda args, dev, gen: {
         "phase": "k4_timings",
         "timings": time_decode_attentions(args.seed, gen, dev, other_runs=True)},
@@ -4595,8 +4686,8 @@ def main() -> None:
     ap.add_argument("--seconds", type=float, default=4.0, help="length of each serve phase")
     ap.add_argument("--only", choices=sorted(ONLY),
                     help="only run this phase, print its line and stop (no result line); "
-                         "a copy of this script times another tree's K2, K4 or backward "
-                         "kernels the same way")
+                         "a copy of this script times another tree's K2, K3-bwd, K4 or "
+                         "backward kernels the same way")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4836,17 +4927,22 @@ def main() -> None:
          "bound_ms": cin_bwd_main["bound_ms"], "bound_by": cin_bwd_main["bound_by"],
          "library_ms": cin_bwd_main["library_ms"],
          "share_of_bound": cin_bwd_main["share_of_bound"],
-         "bound_of": cin_bwd_main["bound_of"], "tf32x3_bound_ms": cin_bwd_main["tf32x3_bound_ms"],
+         "bound_of": cin_bwd_main["bound_of"],
+         "fp32_cuda_core_bound_ms": cin_bwd_main["fp32_cuda_core_bound_ms"],
+         "tf32x3_bound_ms": cin_bwd_main["tf32x3_bound_ms"],
          "tf32x3_share_of_bound": cin_bwd_main["tf32x3_share_of_bound"],
-         "design": "float32 on the CUDA cores, 128 x 128 tiles of 8 x 8 a thread: the data "
-                   "gradient's P = g·w^T a chunk of columns at a time, contracted with x0 "
-                   "and xk in shared memory, a thread a row; the weight gradient with A = "
-                   "xk·x0 formed as it is loaded; runs fixed by the shapes, their float32 "
-                   "partials added in order by a second kernel; no atomics",
+         "design": "3xTF32 wgmma on the tensor cores for both products, A formed in "
+                   "registers (g from a shared tile; xk·x0 from a stage's rows), B's TF32 "
+                   "hi/lo planes (w along n; g along r, N = 200 in one m64n200k8) written "
+                   "by pre-passes and brought in by cp.async.bulk; each 16-value stage "
+                   "from a zero accumulator into a float32 total; P contracted with x0 and "
+                   "xk in shared memory, float32, in ascending m; runs fixed by the "
+                   "shapes, their float32 planes added in order; no atomics",
          "train_batch": {k: cin_bwd_big[k] for k in ("shape", "kernel_ms", "bound_ms",
-                                                    "bound_by", "library_ms",
+                                                    "bound_by", "library_ms", "library_chunk",
                                                     "share_of_bound", "tf32x3_bound_ms",
-                                                    "tf32x3_share_of_bound")},
+                                                    "tf32x3_share_of_bound",
+                                                    "fp32_cuda_core_bound_ms")},
          "shape": f"g ({b}, {hn}, {d}), x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), "
                   f"w ({h * f}, {hn}) float32"},
         {"name": "decode_attention", "route": "cuda",

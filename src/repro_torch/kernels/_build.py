@@ -4,10 +4,11 @@ with ``ctypes``.
 The sources have a plain C interface and include none of PyTorch's
 headers, so a build takes seconds.  It happens at the first kernel launch
 of a process, never at import.  The library goes to ``build/`` at the
-repository root under a name keyed by a hash of the sources and flags, so a
-second process on the same tree loads what the first one built.  Every
-source is compiled by its own ``nvcc`` process, all started together, and
-the objects are linked once.
+repository root under a name keyed by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so a second process on the
+same tree loads what the first one built.  Every source is compiled by its
+own ``nvcc`` process, all started together, and the objects are linked
+once.
 
 A failed build raises ``RuntimeError`` with the compiler's output; nothing
 here falls back to another implementation.
@@ -57,7 +58,7 @@ def _sources() -> list[Path]:
 
 def _key(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

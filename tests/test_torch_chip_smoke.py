@@ -563,7 +563,7 @@ def test_remote_workers_in_a_pid_namespace_must_still_show_on_the_card(fault):
 def _rmc2_count(batch: int = 64):
     from repro_torch import configs
     cfg = configs.get("dlrm-rmc2").config
-    want = chip_smoke.cell_kernel_work(cfg, batch)
+    want = chip_smoke.cell_kernel_work(cfg, batch, train=True)
     counted = {k: {"calls": n, "flops_by_unit": dict(w[0]), "bytes": w[1]}
                for k, (n, w) in want.items()}
     return want, counted, {k: 1 for k in want}
@@ -599,7 +599,8 @@ def test_roofline_gate_refuses_a_count_that_is_not_the_launches(fault):
         chip_smoke.roofline_gate("rmc2", 1.0, {"plain": 10.0}, counted, launched, want)
 
 
-@pytest.mark.parametrize("arch,shape", [("dlrm-rmc2", "train_batch"), ("xdeepfm", "serve_p99")])
+@pytest.mark.parametrize("arch,shape", [("dlrm-rmc2", "train_batch"), ("xdeepfm", "serve_p99"),
+                                        ("xdeepfm", "train_batch")])
 def test_a_cells_count_holds_its_kernels_work(arch, shape):
     """The roofline phase's count of a cell (smoke size, a fake world of one
     rank, a CPU mesh) holds each kernel the step launches with its work()."""
@@ -611,7 +612,8 @@ def test_a_cells_count_holds_its_kernels_work(arch, shape):
         mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
         cell = steps.build_cell(arch, shape, mesh, smoke=True)
         b = configs.RECSYS_SHAPES[shape].batch
-        want = chip_smoke.cell_kernel_work(cfg, b)
+        want = chip_smoke.cell_kernel_work(
+            cfg, b, train=configs.RECSYS_SHAPES[shape].kind == "train")
         res = chip_smoke.cell_roofline(cell, None, {"plain": 1e6}, {k: n for k, (n, _) in
                                                                   want.items()}, want, 0.0)
     assert set(res["kernels_counted"]) == set(want)
@@ -629,8 +631,8 @@ def test_the_gate_holds_a_step_to_its_floor_at_the_distinct_rows():
     from repro_torch.launch import dryrun, steps
     cfg = configs.get("dlrm-rmc2").smoke_config
     b = configs.RECSYS_SHAPES["train_batch"].batch
-    want = chip_smoke.cell_kernel_work(cfg, b)
-    needed = chip_smoke.cell_kernel_work(cfg, b, rows=1.0)
+    want = chip_smoke.cell_kernel_work(cfg, b, train=True)
+    needed = chip_smoke.cell_kernel_work(cfg, b, rows=1.0, train=True)
     launched = {k: n for k, (n, _) in want.items()}
     with dryrun.fake_world(1):
         mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))

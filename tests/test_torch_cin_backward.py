@@ -24,6 +24,7 @@ from repro_torch.kernels import cin as cin_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.layers import interactions as ix
 from repro_torch.roofline import analysis
+from test_torch_kernels import _split
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -95,6 +96,59 @@ def test_the_float64_bound_holds_a_float32_sum_and_refuses_a_dropped_sample():
     assert not bool(((dropped.double() - exact[2]).abs() <= bound["dw"] * mag[2]).all())
 
 
+def _stages(a: np.ndarray, b: np.ndarray, passes: str) -> np.ndarray:
+    """a (rows, R) times b (R, cols) as K3-bwd sums it, emulated on the CPU:
+    the reduction in stages of ``BWD_STAGE`` values, each stage's TF32
+    passes (``passes`` "3": hi·lo + lo·hi + hi·hi; "1": hi·hi) summed in
+    float32 from zero, then added to a float32 total in order."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for s in range(0, a.shape[1], cin_kernel.BWD_STAGE):
+        k = slice(s, s + cin_kernel.BWD_STAGE)
+        stage = a_hi[:, k] @ b_hi[k]
+        if passes == "3":
+            stage = (a_hi[:, k] @ b_lo[k] + a_lo[:, k] @ b_hi[k]) + stage
+        total += stage
+    return total
+
+
+def _emulated_backward(g, x0, xk, w, passes):
+    """K3-bwd's arithmetic on numpy float32 arrays: P = g·wᵀ and dw = Aᵀ·g
+    through ``_stages``, the contractions with x0 and xk in float32."""
+    b, f, d = x0.shape
+    h, n = xk.shape[1], w.shape[1]
+    rows = g.transpose(0, 2, 1).reshape(b * d, n)                     # r = (b, d)
+    p = _stages(rows, w.T, passes).reshape(b, d, h, f)
+    dxk = np.einsum("bdhf,bfd->bhd", p, x0)
+    dx0 = np.einsum("bdhf,bhd->bfd", p, xk)
+    a = np.einsum("bhd,bfd->bdhf", xk, x0).reshape(b * d, h * f)    # float32 products
+    return dx0, dxk, _stages(a.T, rows, passes)
+
+
+def test_the_float64_bound_holds_the_kernels_3xtf32_stages_and_refuses_one_pass():
+    """``backward_error_bound`` against K3-bwd's own arithmetic at xDeepFM's
+    K = 7,800 (F = 39, H = N = 200, D = 10) and B = 4: both products
+    emulated in 3xTF32 (``tests/test_torch_kernels.py``'s TF32 rounding),
+    in the kernel's stages, lie within the bound of the float64 value; one
+    TF32 pass, in the same stages, is at least 10× further off in each
+    gradient."""
+    b, f, h, n, d = 4, 39, 200, 200, 10
+    x0, xk, w, g = _inputs(37, b, f, h, n, d)
+    w = (w / (h * f) ** 0.5).astype(np.float32)
+    t64 = [torch.from_numpy(t).double() for t in (g, x0, xk, w)]
+    exact = ref.cin_layer_backward(*t64)
+    mag = ref.cin_layer_backward(*(t.abs() for t in t64))
+    bound = cin_kernel.backward_error_bound(b, f, h, n, d)
+    three = _emulated_backward(g, x0, xk, w, "3")
+    one = _emulated_backward(g, x0, xk, w, "1")
+    for name, a, c, e, m in zip(("dx0", "dxk", "dw"), three, one, exact, mag):
+        assert a.dtype == np.float32, name
+        err3 = np.abs(a - e.numpy())
+        assert (err3 <= bound[name] * m.numpy()).all(), name
+        assert np.abs(c - e.numpy()).max() >= 10 * err3.max(), name
+
+
 def test_cin_layer_backward_bfloat16_is_the_float32_result_cast_down():
     """bfloat16 in, each gradient the float32 value of the bfloat16 inputs
     rounded once, through the plain backward and through autograd."""
@@ -156,10 +210,19 @@ def test_cin_backward_plan_makes_whole_runs(b, f, h, n, d):
     assert (p.data_splits - 1) * p.h_run < h <= p.data_splits * p.h_run
     assert p.row_run % cin_kernel.BWD_STAGE == 0
     assert (p.weight_splits - 1) * p.row_run < m <= p.weight_splits * p.row_run
-    row_tiles = -(-m // cin_kernel.BWD_TILE)
+    row_tiles = -(-m // cin_kernel.BWD_BLOCK)
     assert row_tiles * p.data_splits >= min(cin_kernel.BWD_TARGET_BLOCKS, row_tiles * h) or \
         p.data_splits == h
     scratch = cin_kernel.backward_scratch(p, b, f, h, n, d)
+    r_stages = -(-m // cin_kernel.BWD_STAGE)
+    nt = cin_kernel.n_tile(n)
+    assert p.chunk == next(c for c in cin_kernel.BWD_CHUNKS
+                           if cin_kernel.backward_shared_bytes(f, h, n, c) <= cin_kernel.SMEM_LIMIT)
+    assert scratch["w_planes"][0] == (p.data_splits, -(-p.h_run * f // p.chunk),
+                                      -(-n // cin_kernel.BWD_STAGE), 2, cin_kernel.BWD_STAGE,
+                                      p.chunk)
+    assert scratch["g_planes"][0] == (-(-n // nt), r_stages, 2, cin_kernel.BWD_STAGE, nt)
+    assert scratch["x_rows"][0] == (r_stages, h + f, cin_kernel.BWD_X_STRIDE)
     assert ("dx0_partial" in scratch) == (p.data_splits > 1)
     assert ("dw_partial" in scratch) == (p.weight_splits > 1)
     if p.weight_splits > 1:
@@ -168,37 +231,63 @@ def test_cin_backward_plan_makes_whole_runs(b, f, h, n, d):
 
 
 def test_cin_backward_plan_refuses_what_does_not_fit():
-    """x0's tile and dx0's sums take F × 128 floats each: F = 176 fits a
-    block's shared memory, 177 does not."""
-    assert cin_kernel.backward_shared_bytes(176) <= cin_kernel.SMEM_LIMIT
-    cin_kernel.backward_plan(4, 176, 2, 8, 10)
-    for f in (177, 500):
+    """The data kernel's x0 tile and dx0's sums take F × 128 floats each, its
+    g tile N (in whole stages) × 136 and P's tile a chunk's columns × 132:
+    xDeepFM's layers take chunks of 64 columns; at N = 8, F = 176 takes
+    chunks of 32, F = 191 still fits a block's shared memory and 192 does
+    not; at N = 200, F = 64 is the last with chunks of 64 and 89 the last
+    that fits; N = 300 fits at F = 5, not at F = 39."""
+    assert cin_kernel.backward_plan(4, 39, 200, 200, 10).chunk == 64
+    assert cin_kernel.backward_plan(4, 176, 2, 8, 10).chunk == 32
+    assert cin_kernel.backward_plan(4, 191, 2, 8, 10).chunk == 32
+    assert cin_kernel.backward_plan(4, 64, 3, 200, 10).chunk == 64
+    assert cin_kernel.backward_plan(4, 65, 3, 200, 10).chunk == 32
+    assert cin_kernel.backward_plan(4, 89, 3, 200, 10).chunk == 32
+    cin_kernel.backward_plan(4, 5, 7, 300, 3)
+    for f, n in ((192, 8), (500, 8), (90, 200), (39, 300)):
         with pytest.raises(ValueError, match="shared memory"):
-            cin_kernel.backward_plan(4, f, 2, 8, 10)
+            cin_kernel.backward_plan(4, f, 2, n, 10)
 
 
 def test_cin_backward_constants_match_the_source():
-    """The plan and the shared memory it checks come from the kernel's
-    tile: the Python constants must be csrc/cin_backward.cu's."""
+    """The plan, the workspaces and the shared memory it checks come from
+    the kernel's tiles: the Python constants must be csrc/cin_backward.cu's;
+    both products go through wgmma in TF32, the weight product at every
+    column tile of K3's."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "cin_backward.cu").read_text()
+    assert '#include "wgmma_tf32.cuh"' in src
+    helpers = (_build.CSRC / "wgmma_tf32.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
-    assert int(consts["TILE"]) == cin_kernel.BWD_TILE and int(consts["KS"]) == cin_kernel.BWD_STAGE
-    assert consts["LD"] == "TILE + 4" and cin_kernel.BWD_LD == cin_kernel.BWD_TILE + 4
-    assert consts["PS"] == "HALF + 4" and cin_kernel.BWD_PS == cin_kernel.BWD_TILE // 2 + 4
-    assert int(consts["SMEM_LIMIT"]) == cin_kernel.SMEM_LIMIT
+    assert (int(consts["BM"]), int(consts["BS"])) == (cin_kernel.BWD_BLOCK, cin_kernel.BWD_STAGE)
+    chunks = re.search(r"constexpr int CHUNKS\[\] = \{([^}]*)\};", src).group(1)
+    assert tuple(int(c) for c in chunks.split(",")) == cin_kernel.BWD_CHUNKS
+    assert consts["XS"] == "BM + 8" and cin_kernel.BWD_G_STRIDE == cin_kernel.BWD_BLOCK + 8
+    assert consts["PS"] == "BM + 4" and cin_kernel.BWD_P_STRIDE == cin_kernel.BWD_BLOCK + 4
+    assert consts["RS"] == "BS + 4" and cin_kernel.BWD_X_STRIDE == cin_kernel.BWD_STAGE + 4
+    assert (int(consts["MIN_STAGES"]), int(consts["BARRIER_BYTES"]), int(consts["SMEM_LIMIT"])) \
+        == (cin_kernel.MIN_STAGES, cin_kernel.BARRIER_BYTES, cin_kernel.SMEM_LIMIT)
+    tiles = re.search(r"constexpr int N_TILES\[\] = \{([^}]*)\};", src).group(1)
+    assert tuple(int(t) for t in tiles.split(",")) == cin_kernel.N_TILES
+    for nt in set(cin_kernel.N_TILES) | set(cin_kernel.BWD_CHUNKS):
+        assert f"m64n{nt}k8.f32.tf32.tf32" in helpers
+    for nt in cin_kernel.N_TILES:
+        assert f"case {nt}: return launch_weight<T, {nt}>" in src
+    for c in cin_kernel.BWD_CHUNKS:
+        assert f"case {c}: err = launch_data<T, {c}>" in src
     assert "cin_layer_backward_launch" in src and "atomic" not in src.replace("No atomics", "")
+    assert "atomic" not in helpers
 
 
 def test_cin_backward_work_counts_both_products():
-    """Float32 on the CUDA cores: 2·M·N·K and 4·M·K for the data gradient,
-    2·M·K·N and M·K for the weight gradient; every input read and every
-    result written once."""
+    """Each product, 2·M·N·K, in three TF32 passes on the tensor cores; the
+    data gradient's contractions 4·M·K and forming A, M·K, float32 on the
+    CUDA cores; every input read and every result written once."""
     b, f, h, n, d = 512, 39, 200, 200, 10
     m, k = b * d, h * f
     flops, nbytes = cin_kernel.backward_work(b, f, h, n, d, 4)
-    assert flops == {"fp32": 4 * m * n * k + 5 * m * k}
+    assert flops == {"tf32": 3 * 2 * (2 * m * n * k), "fp32": 5 * m * k}
     assert nbytes == 4 * (b * n * d + b * f * d + b * h * d + k * n) + 4 * (
         b * f * d + b * h * d + k * n)
     assert abs(2 * m * n * k / 1e9 - 16.0) < 0.05               # 16.0 GFLOP a product
@@ -242,7 +331,7 @@ def test_xdeepfm_train_batch_dry_run_counts_three_k3_bwd():
     works = [cin_kernel.backward_work(b, cfg.n_tables, h, n, cfg.embed_dim, 4)
              for h, n in zip(hs, cfg.cin_layers)]
     assert kernels["cin_layer_backward"]["flops_by_unit"] == {
-        "fp32": sum(w[0]["fp32"] for w in works)}
+        u: sum(w[0][u] for w in works) for u in ("tf32", "fp32")}
     assert kernels["cin_layer_backward"]["bytes"] == sum(w[1] for w in works)
     assert rec["memory"]["peak_bytes_per_device"] < 1e9
 

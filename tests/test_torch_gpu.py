@@ -477,10 +477,18 @@ CIN_BWD_SHAPES = [
     (2, 5, 7, 300, 3), (3, 4, 5, 73, 2),
     (9, 2, 3, 16, 1), (5, 4, 4, 7, 1),                            # D = 1; K below a stage
     (1600, 40, 600, 8, 10),                                       # K = 24,000, split
-    (50, 100, 3, 16, 5), (20, 176, 2, 8, 3),      # one block an SM; the largest F that fits
+    (50, 100, 3, 16, 5), (20, 176, 2, 8, 3),      # one block an SM; chunks of 32 columns
     (8192, 39, 39, 200, 10), (8192, 39, 200, 200, 10),   # xDeepFM, the data gradient whole
     (6800, 7, 9, 33, 10),                         # whole, M = 68,000 not a multiple of 128
+    (20, 191, 2, 8, 3),                           # the largest F a block holds at N = 8
+    (40, 64, 3, 200, 10), (40, 89, 3, 200, 10),   # at N = 200: chunks of 64 and of 32
 ]
+
+# K3-bwd's tile edges: N not a multiple of 8 (one and two column tiles), K =
+# H·F not a multiple of the data product's chunk of columns, and row runs
+# of the weight gradient that end inside a sample (row_run % D != 0)
+CIN_BWD_EDGES = [(40, 39, 39, 13, 10), (33, 39, 200, 201, 10), (17, 13, 11, 24, 10),
+                 (300, 6, 5, 16, 7), (1024, 39, 200, 200, 10)]
 
 
 def _cin_bwd_check(got, x0, xk, w, g, dtype):
@@ -510,7 +518,8 @@ def _cin_bwd_check(got, x0, xk, w, g, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cin_layer_backward_kernel(dev, b, f, h, hn, d, dtype):
     """K3-bwd over the forward's sweep, a K of 24,000 cut into runs, F up to
-    the 176 a block's shared memory holds, and batches of 6,800 and 8,192
+    what a block's shared memory holds (191 at N = 8, 89 at N = 200), and
+    batches of 6,800 and 8,192
     whose data gradient is not cut into runs of h (dx0 stored straight from
     shared memory, as at train_batch's 65,536): against the plain backward
     and, in float32, against float64 (``_cin_bwd_check``); one launch a
@@ -523,6 +532,22 @@ def test_cin_layer_backward_kernel(dev, b, f, h, hn, d, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts()["cin_layer_backward"] == before + 1
     _cin_bwd_check(got, x0, xk, w, g, dtype)
+
+
+@pytest.mark.parametrize("b,f,h,hn,d", CIN_BWD_EDGES)
+def test_cin_layer_backward_kernel_at_its_tiles_edges(dev, b, f, h, hn, d):
+    """Each shape sits on an edge of K3-bwd's tiles (``CIN_BWD_EDGES``), as
+    its plan says; float32 against the plain backward and float64
+    (``_cin_bwd_check``)."""
+    from repro_torch.kernels import cin
+    p = cin.backward_plan(b, f, h, hn, d)
+    assert hn % 8 or (h * f) % p.chunk or (p.weight_splits > 1 and p.row_run % d)
+    x0, xk, w = _cin_inputs(dev, b, f, h, hn, d, torch.float32)
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=(b, hn, d)).astype(np.float32)).to(
+        dev)
+    got = ops.cin_layer_backward(g, x0, xk, w)
+    torch.cuda.synchronize()
+    _cin_bwd_check(got, x0, xk, w, g, torch.float32)
 
 
 @pytest.mark.parametrize("b", [1, 512, 4096, 8192])
@@ -1226,7 +1251,7 @@ def test_accounted_cin_layer_backward_is_its_timing_figure(smoke_script):
     got = _counted_on_fake_cuda(ops.cin_layer_backward, ((b, hn, d), torch.float32),
                                 ((b, f, d), torch.float32), ((b, h, d), torch.float32),
                                 ((h * f, hn), torch.float32))
-    assert _kernel_work(got, "cin_layer_backward") == ({"fp32": t["flops"]}, t["bytes"])
+    assert _kernel_work(got, "cin_layer_backward") == (t["flops_by_unit"], t["bytes"])
 
 
 def test_accounted_decode_attention_is_its_timing_figure(smoke_script):

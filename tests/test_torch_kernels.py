@@ -301,6 +301,8 @@ def test_cin_tile_constants_match_the_source():
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "cin.cu").read_text()
+    assert '#include "wgmma_tf32.cuh"' in src
+    helpers = (_build.CSRC / "wgmma_tf32.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert int(consts["BM"]) == cin_kernel.BLOCK_M and int(consts["BK"]) == cin_kernel.SLICE_K
     assert consts["XS"] == "BM + 8" and cin_kernel.X_STRIDE == cin_kernel.BLOCK_M + 8
@@ -310,7 +312,7 @@ def test_cin_tile_constants_match_the_source():
     tiles = re.search(r"constexpr int N_TILES\[\] = \{([^}]*)\};", src).group(1)
     assert tuple(int(t) for t in tiles.split(",")) == cin_kernel.N_TILES
     for nt in cin_kernel.N_TILES:                     # each tile has its wgmma and its case
-        assert f"m64n{nt}k8.f32.tf32.tf32" in src and f"case {nt}: return launch<T, {nt}>" in src
+        assert f"m64n{nt}k8.f32.tf32.tf32" in helpers and f"case {nt}: return launch<T, {nt}>" in src
 
 
 def _tf32(x: np.ndarray) -> np.ndarray:
