@@ -18,7 +18,8 @@ What it does, one JSON line per phase:
                  layer shapes, B = 512 to 65,536, against its plain version
                  (to 8,192) and float64, the same bits on a second launch, a
                  one-pass TF32 witness at least 10x further off, and timed
-                 at B = 512 and 65,536 (the library yardstick in chunks)
+                 at B = 512, 1,024 (the train phase's batch) and 65,536
+                 (the library yardstick in chunks)
   parity         forward of every recsys smoke config (paper models and
                  zoo), and prefill + 4 decode steps of every dense LM smoke
                  config, on the card (kernels) against the same weights and
@@ -41,6 +42,19 @@ What it does, one JSON line per phase:
                  curve, the static baseline's queries per second, the
                  tuner's on the CPU alone and the tuner's with the card's
                  curve as the accelerator (simulated, 40 executors)
+  datacenter     the JAX package's two datacenter examples on the port, on
+                 the curves sched just measured (cluster.datacenter): the
+                 at-scale table on DLRM-RMC1, RMC3 and WnD (static, tuned on the CPU alone and
+                 with the card, B*, threshold, p95 at 70 % under stragglers,
+                 hedges and an executor failure, whether the SLA holds:
+                 reported), then the fleet day's fleet (skylake x8,
+                 broadwell x4 at 1.5x, h100 x4 on RMC1's host-CPU and card
+                 curves) over a diurnal day cut to 6 s: static against
+                 autoscaled, four routers, reactive against predictive
+                 scaling with boot latency, a quarter of skylake killed with
+                 and without re-route; every number finite, re-route drops
+                 nothing and re-routes some, without it some drop, every
+                 query served or dropped, no kernel launched, within 90 s
   live           DLRM-RMC2 at its published size served live on the card by
                  one worker (cluster.live_node, the batch knob sched tuned
                  with the card, no smaller than the static baseline's,
@@ -232,8 +246,10 @@ no result line:
   fit          the roofline phase's fit entry alone
   lm_moe       the lm_moe phase
   remote       the remote phase
+  datacenter   the sched phase on DLRM-RMC1, RMC3 and WnD (its line), then
+               the datacenter phase on those curves
   k2_timings   K2 timed at the DLRM shapes
-  k3_bwd_timings  K3-bwd timed at xDeepFM's layer shapes, B = 512 and 65,536
+  k3_bwd_timings  K3-bwd timed at xDeepFM's layer shapes, B = 512, 1,024 and 65,536
   bwd_timings  K1-bwd (Zipf and uniform ids) and K2-bwd timed at RMC2's
                shapes, B = 1,024 and train_batch's 65,536
   k4_timings   K4 timed at its four shapes (decode_32k at pos = T and with
@@ -278,6 +294,7 @@ from repro_torch.cluster import (BucketedDeviceModel, FleetFaults, NodeKill,  # 
                                  WallClock, WorkerSupervisor, boot_remote_fleet,
                                  calibrate_device, drive_fleet, live_node, make_router,
                                  sim_backends)
+from repro_torch.cluster import datacenter as dc  # noqa: E402
 from repro_torch.cluster.fleet import NodeView  # noqa: E402
 from repro_torch.configs.paper_models import PAPER_MODELS, SLA_TARGETS  # noqa: E402
 from repro_torch.core import infra  # noqa: E402
@@ -428,6 +445,12 @@ REMOTE_MAX_BUCKET = 64
 REMOTE_LOAD = 0.5
 REMOTE_HORIZON_S = 2.0
 REMOTE_SECONDS = 60.0
+# the datacenter phase: the JAX package's datacenter_sim.py models and tier
+# (dc.MODELS, dc.TIER), and datacenter_fleet.py's fleet on RMC1's curves
+# over a day cut from its 60 s (the fast engine takes seconds of host time
+# a simulated second at the measured fleet's 50,000-80,000 queries a second)
+DATACENTER_DAY_S = 6.0
+DATACENTER_SECONDS = 90.0
 
 
 def bound(work: tuple[dict[str, float], float]) -> tuple[float, str]:
@@ -693,14 +716,40 @@ def cin_inputs(gen, dev, b: int, f: int, h: int, hn: int, d: int,
     return x0, xk, w
 
 
-def xdeepfm_cin_shapes() -> list[tuple[int, int, int]]:
-    """(F, H, Hn) of each of xDeepFM's CIN layers (the last two coincide)."""
+def xdeepfm_cin_layers() -> list[tuple[int, int, int]]:
+    """(F, H, Hn) of each of xDeepFM's CIN layers, in order."""
     cfg = configs.get("xdeepfm").config
     shapes, h = [], cfg.n_tables
     for hn in cfg.cin_layers:
         shapes.append((cfg.n_tables, h, hn))
         h = hn
-    return sorted(set(shapes))
+    return shapes
+
+
+def xdeepfm_cin_shapes() -> list[tuple[int, int, int]]:
+    """The distinct (F, H, Hn) of xDeepFM's CIN layers (the last two coincide)."""
+    return sorted(set(xdeepfm_cin_layers()))
+
+
+def cin_bwd_by_layer(times: list[dict], batch: int, launched: int) -> dict:
+    """The kernels line's K3-bwd entry for one phase's xDeepFM steps at
+    ``batch``: ``launched`` (every layer's) split over the layer shapes,
+    each backward step launching K3-bwd once a CIN layer, each shape's
+    share beside its time at ``batch`` from ``times``, so that launches ×
+    ms adds up."""
+    layers = xdeepfm_cin_layers()
+    if launched % len(layers):
+        fail(f"K3-bwd: {launched} launches at B = {batch} are not a whole number of "
+             f"{len(layers)}-layer backward steps")
+    out = []
+    for f, h, hn in xdeepfm_cin_shapes():
+        t = next(t for t in times if t["shape"][:4] == [batch, f, h, hn])
+        out.append({"launches": launched // len(layers) * layers.count((f, h, hn)),
+                    **{k: t[k] for k in ("shape", "kernel_ms", "bound_ms", "bound_by",
+                                         "plain_ms", "library_ms", "library_chunk",
+                                         "share_of_bound", "tf32x3_bound_ms",
+                                         "tf32x3_share_of_bound", "fp32_cuda_core_bound_ms")}})
+    return {"launches": launched, "layers": out}
 
 
 def cin_float64_bound(k: int) -> float:
@@ -852,7 +901,8 @@ CIN_BWD_BATCHES = (512, 4096, 8192, 65_536)   # K3-bwd's checks: serve_p99's bat
 # 16x it (the data gradient cut into runs of h, then not), and train_batch's
 CIN_BWD_PLAIN_MAX = 8192   # the largest batch held against the float32 plain backward whole
 CIN_BWD_CHUNK = 2048       # samples a float64 pass of the plain backward
-CIN_BWD_TIMED = (512, 65_536)          # its timings: serve_p99's and train_batch's
+CIN_BWD_TIMED = (512, TRAIN_BATCH, 65_536)   # its timings: serve_p99's, the train phase's
+# and train_batch's batches
 CIN_BWD_LIBRARY_BYTES = 12 * 2**30     # the library yardstick's (B·D, H·F) tensors, at most
 
 
@@ -1026,18 +1076,19 @@ def library_cin_backward_chunked(g, x0, xk, w, chunk: int) -> tuple:
 
 
 def time_cin_layer_backward(gen, dev, b: int, f: int, h: int, hn: int, d: int) -> dict:
-    """K3-bwd at one layer's shape.  B = 512: CUDA-graph replays over four
-    rotating input sets (w one matrix), beside the plain backward (graph
-    replays too) and the library yardstick (eager calls: autograd inside).
-    B = 65,536: eager calls on the device's clock (a call is tens of ms), no
-    plain version (its two (B, H·F, D) float32 tensors, P and the maps, are
-    40.9 GB at K = 7,800), the library yardstick in chunks of samples whose
+    """K3-bwd at one layer's shape.  B = 512 and 1,024 (to
+    CIN_BWD_PLAIN_MAX): CUDA-graph replays over four rotating input sets (w
+    one matrix), beside the plain backward (graph replays too) and the
+    library yardstick (eager calls: autograd inside).  B = 65,536: eager
+    calls on the device's clock (a call is tens of ms), no plain version
+    (its two (B, H·F, D) float32 tensors, P and the maps, are 40.9 GB at
+    K = 7,800), the library yardstick in chunks of samples whose
     four (B·D, H·F) float32 tensors take at most CIN_BWD_LIBRARY_BYTES
     (``library_cin_backward_chunked``).  The bound: ``backward_work``'s
     (3xTF32 on the tensor cores, forming A and the contractions float32 on
     the CUDA cores); beside it the bound of the float32 CUDA-core kernel
     K3-bwd replaced, max(bytes, (4·M·N·K + 5·M·K) / 67 TFLOP/s)."""
-    big = b > CIN_BWD_TIMED[0]
+    big = b > CIN_BWD_PLAIN_MAX
     n_sets = 1 if big else 4
     sets = [cin_backward_inputs(gen, dev, b, f, h, hn, d) for _ in range(n_sets)]
     w = sets[0][3]
@@ -1623,69 +1674,159 @@ def tune_three(arch: str, cpu, card, sla: float, seed: int) -> dict:
             "tuned_below_static": min(cpu_only.qps, with_card.qps) < q0}
 
 
-def sched(seed: int, dev) -> dict:
-    """DeepRecSched on the card: for each of the eight paper models at its
-    published size, one at a time, the card's latency curve through the
-    serving worker's steps (``infra.measure_card_curve``: pad, copy,
-    forward, wait; exactly ``forward_launches(cfg)`` a request) and the
-    host CPU's curve (``infra.measure_cpu_curve``) twice: on all its
+def sched_model(seed: int, dev, arch: str, cfg, out_dir: Path) -> tuple[dict, dict]:
+    """One paper model at its published size: the card's latency curve
+    through the serving worker's steps (``infra.measure_card_curve``: pad,
+    copy, forward, wait; exactly ``forward_launches(cfg)`` a request) and
+    the host CPU's curve (``infra.measure_cpu_curve``) twice: on all its
     threads, the reference's method and the one the curve file keeps, and
     on one thread, what one of the simulated node's executors (a core) has.
-    Both files go to ``sched_artifacts()``.  Then, on each CPU curve at the
-    model's medium SLA, ``tune_three`` (40 executors, one accelerator, the
-    simulator's request overhead: the reference's constants)."""
+    Both files go to ``out_dir``.  Then, on each CPU curve at the model's
+    medium SLA, ``tune_three`` (40 executors, one accelerator, the
+    simulator's request overhead: the reference's constants).  Returns the
+    model's row of the sched line and its curves, ``{"cpu": all threads,
+    "card": the card}``."""
+    t0 = time.monotonic()
+    params = recsys.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    ops.reset_launch_counts()
+    card = infra.measure_card_curve(arch, cfg=cfg, params=params, seed=seed)
+    launches = ops.launch_counts()
+    want = {k: n * card.requests for k, n in forward_launches(cfg).items()}
+    if launches != want:
+        fail(f"sched {arch}: {card.requests} requests launched {launches}, expected {want}")
+    card_ms = {int(b): s * 1e3 for b, s in zip(card.curve.batches, card.curve.seconds)}
+    check_curve(f"sched {arch} card curve", card_ms)
+    logit_err = None
+    if cfg.interaction in PLAIN_FORWARD:
+        probe = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, 256,
+                                           with_label=False), dev)
+        logit_err = compare(f"sched {arch} logits vs plain", recsys.forward(params, cfg, probe),
+                            PLAIN_FORWARD[cfg.interaction](params, cfg, probe), 1e-4, 1e-4)
+        del probe
+    del params
+    torch.cuda.empty_cache()
+    card_s = time.monotonic() - t0
+
+    cpu = infra.measure_cpu_curve(arch)
+    cpu_ms = {int(b): s * 1e3 for b, s in zip(cpu.batches, cpu.seconds)}
+    check_curve(f"sched {arch} CPU curve", cpu_ms)
+    cpu1 = infra.measure_cpu_curve(arch, threads=1)
+    cpu1_ms = {int(b): s * 1e3 for b, s in zip(cpu1.batches, cpu1.seconds)}
+    check_curve(f"sched {arch} one-thread CPU curve", cpu1_ms)
+    infra.store_curves(out_dir / infra.CARD_CURVES, {arch: card.curve},
+                       {arch: infra.card_meta(arch, card, cfg=cfg)})
+    infra.store_curves(out_dir / infra.CPU_CURVES, {arch: cpu}, {arch: infra.cpu_meta(arch)})
+
+    t1 = time.monotonic()
+    row = {
+        "arch": arch, "sla_ms": SLA_TARGETS[arch].medium_ms,
+        "card_ms": card_ms, "card_steps_ms": card.steps_ms, "card_monotone": monotone(card_ms),
+        "cpu_ms": cpu_ms, "cpu_monotone": monotone(cpu_ms),
+        "cpu_1t_ms": cpu1_ms, "cpu_1t_monotone": monotone(cpu1_ms),
+        **tune_three(arch, cpu, card.curve, SLA_TARGETS[arch].medium_ms, seed),
+        "one_thread": tune_three(arch, cpu1, card.curve, SLA_TARGETS[arch].medium_ms, seed),
+        "launches": launches, "requests": card.requests,
+        "logits_max_abs_err_vs_plain": logit_err,
+        "seconds": {"card": card_s, "cpu_curves": t1 - t0 - card_s,
+                    "tuning": time.monotonic() - t1}}
+    return row, {"cpu": cpu, "card": card.curve}
+
+
+def sched(seed: int, dev, archs=tuple(PAPER_MODELS)) -> tuple[dict, dict]:
+    """DeepRecSched on the card: ``sched_model`` for each of ``archs`` (the
+    eight paper models) at its published size, one at a time.  Returns the
+    sched line and each model's curves, ``{arch: {"cpu": ..., "card": ...}}``."""
     out_dir = sched_artifacts()
-    rows, total = [], dict.fromkeys(KERNELS, 0)
-    for arch, cfg in PAPER_MODELS.items():
-        t0 = time.monotonic()
-        params = recsys.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
-        ops.reset_launch_counts()
-        card = infra.measure_card_curve(arch, cfg=cfg, params=params, seed=seed)
-        launches = ops.launch_counts()
-        want = {k: n * card.requests for k, n in forward_launches(cfg).items()}
-        if launches != want:
-            fail(f"sched {arch}: {card.requests} requests launched {launches}, expected {want}")
-        total = {k: total[k] + launches[k] for k in KERNELS}
-        card_ms = {int(b): s * 1e3 for b, s in zip(card.curve.batches, card.curve.seconds)}
-        check_curve(f"sched {arch} card curve", card_ms)
-        logit_err = None
-        if cfg.interaction in PLAIN_FORWARD:
-            probe = to_device(syn.recsys_batch(np.random.default_rng(seed), cfg, 256,
-                                               with_label=False), dev)
-            logit_err = compare(f"sched {arch} logits vs plain", recsys.forward(params, cfg, probe),
-                                PLAIN_FORWARD[cfg.interaction](params, cfg, probe), 1e-4, 1e-4)
-            del probe
-        del params
-        torch.cuda.empty_cache()
-        card_s = time.monotonic() - t0
-
-        cpu = infra.measure_cpu_curve(arch)
-        cpu_ms = {int(b): s * 1e3 for b, s in zip(cpu.batches, cpu.seconds)}
-        check_curve(f"sched {arch} CPU curve", cpu_ms)
-        cpu1 = infra.measure_cpu_curve(arch, threads=1)
-        cpu1_ms = {int(b): s * 1e3 for b, s in zip(cpu1.batches, cpu1.seconds)}
-        check_curve(f"sched {arch} one-thread CPU curve", cpu1_ms)
-        infra.store_curves(out_dir / infra.CARD_CURVES, {arch: card.curve},
-                           {arch: infra.card_meta(arch, card, cfg=cfg)})
-        infra.store_curves(out_dir / infra.CPU_CURVES, {arch: cpu}, {arch: infra.cpu_meta(arch)})
-
-        t1 = time.monotonic()
-        rows.append({
-            "arch": arch, "sla_ms": SLA_TARGETS[arch].medium_ms,
-            "card_ms": card_ms, "card_steps_ms": card.steps_ms, "card_monotone": monotone(card_ms),
-            "cpu_ms": cpu_ms, "cpu_monotone": monotone(cpu_ms),
-            "cpu_1t_ms": cpu1_ms, "cpu_1t_monotone": monotone(cpu1_ms),
-            **tune_three(arch, cpu, card.curve, SLA_TARGETS[arch].medium_ms, seed),
-            "one_thread": tune_three(arch, cpu1, card.curve, SLA_TARGETS[arch].medium_ms, seed),
-            "launches": launches, "requests": card.requests,
-            "logits_max_abs_err_vs_plain": logit_err,
-            "seconds": {"card": card_s, "cpu_curves": t1 - t0 - card_s,
-                        "tuning": time.monotonic() - t1}})
+    rows, curves, total = [], {}, dict.fromkeys(KERNELS, 0)
+    for arch in archs:
+        row, curves[arch] = sched_model(seed, dev, arch, PAPER_MODELS[arch], out_dir)
+        total = {k: total[k] + row["launches"][k] for k in KERNELS}
+        rows.append(row)
     return {"phase": "sched", "executors": SCHED_EXECUTORS, "cpu_curve_iters": infra.CPU_ITERS,
             "cpu": infra.cpu_model(),
             "cpu_threads": torch.get_num_threads(), "card_reps": infra.CARD_REPS,
             "card_warmup": infra.CARD_WARMUP, "artifacts": str(out_dir),
-            "models": rows, "launches": total}
+            "models": rows, "launches": total}, curves
+
+
+# ------------------------------------------------------------------- datacenter
+
+
+def numbers(obj, path: str = ""):
+    """(path, value) of every number in a line's nested dicts and lists;
+    booleans, strings and None are not numbers."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from numbers(v, f"{path}.{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from numbers(v, f"{path}[{i}]")
+    elif not isinstance(obj, (bool, str, type(None))):
+        yield path, float(obj)
+
+
+def check_datacenter(line: dict) -> None:
+    """The datacenter line's gates: every number finite; the killed day
+    with re-route drops no query and re-routes at least one, without
+    re-route it drops at least one; every fleet run serves or drops each
+    offered query; no kernel launched; the phase within DATACENTER_SECONDS."""
+    bad = [p for p, v in numbers(line) if not math.isfinite(v)]
+    if bad:
+        fail(f"datacenter: non-finite numbers at {bad}")
+    fleet = line["fleet"]
+    kill = fleet["kill"]
+    if kill["reroute"]["dropped"] != 0 or kill["reroute"]["rerouted"] < 1:
+        fail(f"datacenter: the killed day with re-route re-routed {kill['reroute']['rerouted']} "
+             f"and dropped {kill['reroute']['dropped']} queries (want >= 1 and 0)")
+    if kill["no_reroute"]["dropped"] < 1:
+        fail("datacenter: the killed day without re-route dropped no query")
+    for what, r in (("static", fleet["static"]), ("autoscaled", fleet["autoscaled"]),
+                    ("kill with re-route", kill["reroute"]),
+                    ("kill without re-route", kill["no_reroute"])):
+        if r["served"] + r["dropped"] != fleet["queries"]:
+            fail(f"datacenter: {what} served {r['served']} and dropped {r['dropped']} of "
+                 f"{fleet['queries']} offered queries")
+    if any(line["launches"].values()):
+        fail(f"datacenter: launched {line['launches']}; the phase launches no kernel")
+    if line["seconds"]["total"] > DATACENTER_SECONDS:
+        fail(f"datacenter: {line['seconds']['total']:.1f} s, past {DATACENTER_SECONDS:.0f} s")
+
+
+def datacenter(curves: dict, *, day_s: float = DATACENTER_DAY_S, seed: int = 0) -> dict:
+    """The JAX package's two datacenter examples on the port, on ``curves``
+    (``{arch: {"cpu": ..., "card": ...}}``, as ``sched`` measured them):
+    ``dc.sim_rows`` on dc.MODELS with the card's curves as the accelerator
+    (static, tuned on the CPU alone and with the card, p95 at 70 % under
+    stragglers, hedges and an executor failure), then ``dc.fleet_day`` on
+    the fleet of the fleet model's host-CPU and card curves over a
+    ``day_s`` day.  Numpy only: no kernel launches.
+    Gated by ``check_datacenter``; whether each model meets its SLA under
+    faults is reported, not gated, as the reference's OK / VIOLATED column."""
+    t0 = time.monotonic()
+    before = ops.launch_counts()
+    rows = dc.sim_rows(dc.MODELS, dc.TIER, {a: curves[a]["cpu"] for a in dc.MODELS},
+                       {a: curves[a]["card"] for a in dc.MODELS}, seed=seed)
+    t_sim = time.monotonic() - t0
+    arch = dc.FLEET_ARCH
+    fleet = dc.fleet_day(dc.build_fleet(False, cpu=curves[arch]["cpu"],
+                                        accel=curves[arch]["card"]), day_s=day_s, seed=seed)
+    after, total_s = ops.launch_counts(), time.monotonic() - t0
+    line = {"phase": "datacenter", "tier": dc.TIER, "fleet_arch": arch,
+            "cut": f"the fleet's day {day_s:g} s, windows {fleet['window_s']:g} s, "
+                   f"boot {fleet['boot_s']:g} s (the reference's 60 s, 2 s, 6 s)",
+            "day_s": day_s, "sim": rows, "fleet": fleet,
+            "launches": {k: after[k] - before[k] for k in KERNELS},
+            "seconds": {"sim": t_sim, "fleet": total_s - t_sim, "total": total_s}}
+    check_datacenter(line)
+    return line
+
+
+def datacenter_only(seed: int, dev) -> dict:
+    """``--only datacenter``: ``sched`` on dc.MODELS alone (its line
+    printed), then the datacenter phase on the curves it measured."""
+    line, curves = sched(seed, dev, dc.MODELS)
+    emit({**line, "card": card_line()})
+    return datacenter(curves, seed=seed)
 
 
 # ------------------------------------------------------------------------- live
@@ -4660,6 +4801,7 @@ ONLY = {
     "zoo": lambda args, dev, gen: zoo(args.seed, dev, gen)[0],
     "lm_moe": lambda args, dev, gen: lm_moe(args.seed, dev, gen),
     "remote": lambda args, dev, gen: remote(args.seed),
+    "datacenter": lambda args, dev, gen: datacenter_only(args.seed, dev),
     "gnn": lambda args, dev, gen: gnn_phase(args.seed, dev, gen),
     "dist": lambda args, dev, gen: dist_phase(args.seed, dev),
     "cells": lambda args, dev, gen: cells_phase(args.seed, dev, gen),
@@ -4759,8 +4901,10 @@ def main() -> None:
                    batch_size=64, sla_ms=SLA_TARGETS[SERVE_ARCH].medium_ms, curve=True)
     after(served)
 
-    scheduled = sched(args.seed, dev)
+    scheduled, curves = sched(args.seed, dev)
     after(scheduled)
+    # the two datacenter examples on the curves sched just measured
+    after(datacenter(curves, seed=args.seed))
 
     # RMC2 live against its twin, at the knob the sched phase just tuned
     # with the card (no smaller than the static baseline's: the live node
@@ -4834,9 +4978,8 @@ def main() -> None:
     cin_main = next(t for t in cin_times
                     if t["shape"][0] == ZOO_BATCHES[-1] and t["shape"][1] * t["shape"][2] == k_max)
     b, f, h, hn, d = cin_main["shape"]
-    cin_bwd_main, cin_bwd_big = (next(t for t in cin_bwd_times if t["shape"][0] == bb
-                                      and t["shape"][1] * t["shape"][2] == k_max)
-                                 for bb in CIN_BWD_TIMED)
+    cin_bwd_main = next(t for t in cin_bwd_times if t["shape"][0] == CIN_BWD_TIMED[0]
+                        and t["shape"][1] * t["shape"][2] == k_max)
     qwen = configs.get(LM_ARCH).config
     rec = trained["recsys"]
     k1b_main, k1b_uniform = rec["timings_embedding_bag_backward"]
@@ -4938,11 +5081,13 @@ def main() -> None:
                    "from a zero accumulator into a float32 total; P contracted with x0 and "
                    "xk in shared memory, float32, in ascending m; runs fixed by the "
                    "shapes, their float32 planes added in order; no atomics",
-         "train_batch": {k: cin_bwd_big[k] for k in ("shape", "kernel_ms", "bound_ms",
-                                                    "bound_by", "library_ms", "library_chunk",
-                                                    "share_of_bound", "tf32x3_bound_ms",
-                                                    "tf32x3_share_of_bound",
-                                                    "fp32_cuda_core_bound_ms")},
+         # the train phase's xDeepFM steps (B = 1,024) and the cells phase's
+         # xdeepfm x train_batch steps (B = 65,536), each layer shape's launches
+         # beside its time
+         "train_phase": cin_bwd_by_layer(cin_bwd_times, CIN_BWD_TIMED[1],
+                                         trained["launches"]["cin_layer_backward"]),
+         "train_batch": cin_bwd_by_layer(cin_bwd_times, CIN_BWD_TIMED[2],
+                                         celled["launches"]["cin_layer_backward"]),
          "shape": f"g ({b}, {hn}, {d}), x0 ({b}, {f}, {d}), xk ({b}, {h}, {d}), "
                   f"w ({h * f}, {hn}) float32"},
         {"name": "decode_attention", "route": "cuda",

@@ -46,11 +46,16 @@ hundreds of machines", validated against real execution).
   driver (plus the event engine per node when faults/contention are
   enabled); ``OffloadTuning`` turns on the per-node online
   offload-threshold controller.
+* ``datacenter`` — the JAX package's two datacenter examples' scenarios
+  (``examples/datacenter_sim.py``'s table, ``datacenter_fleet.py``'s day)
+  as functions that return their numbers.
 
 The port's copy of the JAX package's ``repro.cluster``.  Every module but
-``live`` and ``remote`` is a copy, equal to the reference on the same
-inputs; ``live`` binds the backend to the port's ``ServingRuntime``, and
-``remote`` spawns the port's workers (``repro_torch.serve.remote``).
+``live``, ``remote`` and ``datacenter`` is a copy, equal to the reference on
+the same inputs; ``live`` binds the backend to the port's
+``ServingRuntime``, ``remote`` spawns the port's workers
+(``repro_torch.serve.remote``), and ``datacenter`` holds what the
+reference keeps in its examples.
 """
 from repro_torch.cluster.autoscaler import (Autoscaler,  # noqa: F401
                                             CapacityLedger, DiagnosisPolicy,

@@ -676,3 +676,100 @@ def test_fit_entry_gates_each_peak_below_the_cards_memory():
     with pytest.raises(SystemExit, match="fit: yi-34b"):
         chip_smoke.fit_entry(smoke=True, device="cpu",
                              total=chip_smoke.FIT_MARGIN_BYTES + min(peaks) - 1)
+
+
+# ------------------------------------------------------------ datacenter
+
+
+@pytest.fixture(scope="module")
+def datacenter_line():
+    """The datacenter phase's body on the recorded curves (the host CPU's
+    torch curves and the H100's) at a 1 s day."""
+    from repro_torch.core import latency_model as lat
+    cpu, card = (lat.load_curves(os.path.join(REPO, "artifacts", name))
+                 for name in ("torch_cpu_latency_curves.json", "h100_latency_curves.json"))
+    curves = {a: {"cpu": cpu[a], "card": card[a]} for a in chip_smoke.dc.MODELS}
+    return chip_smoke.datacenter(curves, day_s=1.0)
+
+
+def test_datacenter_line_has_its_keys(datacenter_line):
+    import json
+    line = json.loads(json.dumps(datacenter_line))
+    assert line["phase"] == "datacenter" and line["day_s"] == 1.0
+    assert line["cut"].startswith("the fleet's day 1 s, windows 0.0333333 s, boot 0.1 s")
+    assert [r["arch"] for r in line["sim"]] == list(chip_smoke.dc.MODELS)
+    for r in line["sim"]:
+        assert {"static", "tuned", "x", "batch", "p95_ms", "ok", "hedges", "requeued"} <= set(r)
+        assert {"tuned", "batch", "threshold", "p95_ms", "ok", "hedges", "requeued"} <= set(
+            r["card"])
+    fleet = line["fleet"]
+    assert [p["name"] for p in fleet["pools"]] == ["skylake", "broadwell", "h100"]
+    assert set(fleet) >= {"queries", "timeline", "static", "autoscaled", "routers", "boot",
+                          "kill"}
+    assert set(fleet["routers"]) == {"round_robin", "least_outstanding", "size_aware", "hetero"}
+    assert set(fleet["boot"]) == {"reactive", "predictive"}
+    assert fleet["kill"]["reroute"]["rerouted"] >= 1 and fleet["kill"]["no_reroute"]["dropped"] >= 1
+    assert not any(line["launches"].values())
+    assert set(line["seconds"]) == {"sim", "fleet", "total"}
+
+
+def _broken(line: dict, fault: str) -> dict:
+    import copy
+    line = copy.deepcopy(line)
+    fleet = line["fleet"]
+    kill = fleet["kill"]
+    if fault == "rerouted_day_drops":
+        kill["reroute"]["dropped"] += 1
+        kill["reroute"]["served"] -= 1
+    elif fault == "nothing_rerouted":
+        kill["reroute"]["rerouted"] = 0
+    elif fault == "no_drop_without_reroute":
+        kill["no_reroute"]["served"] += kill["no_reroute"]["dropped"]
+        kill["no_reroute"]["dropped"] = 0
+    elif fault == "query_lost":
+        fleet["autoscaled"]["served"] -= 1
+    elif fault == "non_finite":
+        line["sim"][1]["card"]["p95_ms"] = float("nan")
+    elif fault == "launched":
+        line["launches"]["embedding_bag"] = 1
+    elif fault == "slow":
+        line["seconds"]["total"] = chip_smoke.DATACENTER_SECONDS + 1
+    return line
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("rerouted_day_drops", "with re-route"),
+    ("nothing_rerouted", "with re-route"),
+    ("no_drop_without_reroute", "without re-route dropped no query"),
+    ("query_lost", "autoscaled served"),
+    ("non_finite", "non-finite"),
+    ("launched", "launches no kernel"),
+    ("slow", "past"),
+])
+def test_datacenter_gates_refuse_a_broken_line(datacenter_line, fault, match):
+    chip_smoke.check_datacenter(datacenter_line)
+    with pytest.raises(SystemExit, match=match):
+        chip_smoke.check_datacenter(_broken(datacenter_line, fault))
+
+
+def test_cin_bwd_entry_splits_launches_by_layer_shape():
+    """The kernels line's K3-bwd entry puts each layer shape's launches
+    beside that shape's time, so launches × ms adds up over the step."""
+    layers = chip_smoke.xdeepfm_cin_layers()
+    shapes = chip_smoke.xdeepfm_cin_shapes()
+    assert len(shapes) == 2 < len(layers)
+    keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "library_chunk",
+            "share_of_bound", "tf32x3_bound_ms", "tf32x3_share_of_bound",
+            "fp32_cuda_core_bound_ms")
+    times = [{"shape": [b, f, h, hn, 10], **{k: float(b * h) for k in keys}}
+             for b in (1024, 65_536) for f, h, hn in shapes]
+    steps = 15
+    entry = chip_smoke.cin_bwd_by_layer(times, 1024, steps * len(layers))
+    assert entry["launches"] == steps * len(layers)
+    assert [e["shape"][1:4] for e in entry["layers"]] == [list(s) for s in shapes]
+    assert [e["launches"] for e in entry["layers"]] == [steps * layers.count(s) for s in shapes]
+    assert sum(e["launches"] for e in entry["layers"]) == entry["launches"]
+    assert all(e["shape"][0] == 1024 and e["kernel_ms"] == 1024 * e["shape"][2]
+               for e in entry["layers"])
+    with pytest.raises(SystemExit, match="not a whole number"):
+        chip_smoke.cin_bwd_by_layer(times, 65_536, steps * len(layers) + 1)

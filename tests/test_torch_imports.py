@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "import chip_smoke\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
         "import serve_recsys_torch, quickstart_torch, live_fleet_torch, train_dlrm_torch\n"
-        "import remote_fleet_torch\n"
+        "import remote_fleet_torch, datacenter_sim_torch, datacenter_fleet_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
@@ -76,7 +76,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "live_fleet_torch.py"),
              os.path.join(REPO, "examples", "train_dlrm_torch.py"),
-             os.path.join(REPO, "examples", "remote_fleet_torch.py")]
+             os.path.join(REPO, "examples", "remote_fleet_torch.py"),
+             os.path.join(REPO, "examples", "datacenter_sim_torch.py"),
+             os.path.join(REPO, "examples", "datacenter_fleet_torch.py")]
     for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 86
